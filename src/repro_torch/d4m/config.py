@@ -1,0 +1,241 @@
+"""Validated configuration + capacity planning for a D4M streaming session
+(port of ``repro.d4m.config``: ``StreamConfig``, ``CapacityPlan``, ``plan``).
+
+:meth:`StreamConfig.from_dict` takes the reference's wire form unchanged.
+The reference's ``engine="pallas"`` (its TPU kernel engine) names the port's
+kernel engine, ``"cuda"``.  ``ServeConfig`` and the ``mesh`` engine are not
+ported yet: a ``serve=`` other than ``None`` and a resolved ``mesh`` engine
+raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import torch
+
+from repro_torch.core import semiring as semiring_mod
+from repro_torch.core.hierarchical import geometric_cuts, telescoped_caps
+from repro_torch.core.semiring import Semiring
+
+ENGINES = ("auto", "single", "packed", "cuda", "mesh")
+
+#: the reference's engine names that mean a port engine of another name
+ENGINE_ALIASES = {"pallas": "cuda"}
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Everything a :class:`~repro_torch.d4m.session.D4MStream` needs,
+    validated; the same fields and wire form as the reference."""
+
+    top_capacity: int
+    batch_size: int
+    cuts: Tuple[int, ...] | None = None
+    c1: int | None = None
+    cut_ratio: int = 8
+    n_layers: int | None = None
+    semiring: str | Semiring = "plus.times"
+    dtype: Any = "float32"
+    instances_per_device: int = 1
+    devices: int | None = 1
+    axis_name: str = "data"
+    engine: str = "auto"
+    branchless: bool | None = None
+    snapshot_cap: int | None = None
+    max_fanout: int = 32
+    seed: int = 0
+    serve: Any = None
+
+    def __post_init__(self):
+        engine = ENGINE_ALIASES.get(self.engine, self.engine)
+        object.__setattr__(self, "engine", engine)
+
+    # -- resolution helpers -------------------------------------------------
+    @property
+    def sr(self) -> Semiring:
+        if isinstance(self.semiring, Semiring):
+            return self.semiring
+        return semiring_mod.get(self.semiring)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        if isinstance(self.dtype, torch.dtype):
+            return self.dtype
+        dt = getattr(torch, str(self.dtype), None)
+        if not isinstance(dt, torch.dtype):
+            raise ValueError(f"unknown dtype {self.dtype!r}")
+        return dt
+
+    def resolved_cuts(self) -> Tuple[int, ...]:
+        if self.cuts is not None:
+            return tuple(int(c) for c in self.cuts)
+        if self.c1 is None or self.n_layers is None:
+            raise ValueError(
+                "StreamConfig needs either explicit cuts=... or a geometric "
+                "schedule via c1=, cut_ratio=, n_layers="
+            )
+        return geometric_cuts(self.c1, self.cut_ratio, self.n_layers)
+
+    def resolved_devices(self) -> int:
+        if self.devices is None:
+            return max(1, torch.cuda.device_count())
+        return int(self.devices)
+
+    def validate(self) -> "StreamConfig":
+        cuts = self.resolved_cuts()
+        if any(c <= 0 for c in cuts):
+            raise ValueError(f"cuts must be positive, got {cuts}")
+        if any(b <= a for a, b in zip(cuts, cuts[1:])):
+            raise ValueError(f"cuts must be strictly increasing, got {cuts}")
+        if self.top_capacity <= 0:
+            raise ValueError(f"top_capacity must be positive, got {self.top_capacity}")
+        if self.batch_size <= 0:
+            raise ValueError(f"batch_size must be positive, got {self.batch_size}")
+        if self.instances_per_device < 1:
+            raise ValueError(
+                f"instances_per_device must be >= 1, got {self.instances_per_device}"
+            )
+        d = self.resolved_devices()
+        if d < 1:
+            raise ValueError(f"devices must be >= 1, got {d}")
+        if self.engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}, got {self.engine!r}")
+        k = self.instances_per_device
+        if self.engine == "single" and (k != 1 or d != 1):
+            raise ValueError(
+                f"engine='single' requires instances_per_device=1 and devices=1, "
+                f"got K={k}, D={d}"
+            )
+        if self.engine in ("packed", "cuda") and d != 1:
+            raise ValueError(f"engine={self.engine!r} requires devices=1, got D={d}")
+        if self.max_fanout < 1:
+            raise ValueError(f"max_fanout must be >= 1, got {self.max_fanout}")
+        if self.serve is not None:
+            raise NotImplementedError("ServeConfig (serve=) is not ported yet")
+        self.sr  # raises KeyError on an unknown semiring name
+        self.torch_dtype
+        return self
+
+    # -- wire form -----------------------------------------------------------
+    def to_dict(self) -> dict:
+        """JSON-ready dict; inverse of :meth:`from_dict`."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if f.name == "semiring":
+                v = v.name if isinstance(v, Semiring) else v
+            elif f.name == "dtype":
+                v = str(self.torch_dtype).removeprefix("torch.")
+            elif isinstance(v, tuple):
+                v = list(v)
+            out[f.name] = v
+        return out
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "StreamConfig":
+        """Build from either package's :meth:`to_dict` wire form."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown StreamConfig keys {sorted(unknown)}")
+        kw = dict(d)
+        if kw.get("cuts") is not None:
+            kw["cuts"] = tuple(int(c) for c in kw["cuts"])
+        return cls(**kw).validate()
+
+    def resolved_engine(self, device: str | torch.device = "cuda") -> str:
+        """The engine ``"auto"`` resolves to on ``device``.
+
+        An explicit ``engine=`` wins; otherwise K>1 picks the ``cuda``
+        kernel engine on a CUDA device and the branchless ``packed`` engine
+        on the CPU, and K=1 picks ``single``.  ``mesh`` (D>1) is not ported
+        yet and raises.  The reference's ``REPRO_D4M_ENGINE`` override is
+        not read.
+        """
+        self.validate()
+        engine = self.engine
+        if engine == "auto":
+            if self.resolved_devices() > 1:
+                engine = "mesh"
+            elif self.instances_per_device > 1:
+                engine = "cuda" if torch.device(device).type == "cuda" else "packed"
+            else:
+                engine = "single"
+        if engine == "mesh":
+            raise NotImplementedError("the mesh engine (devices > 1) is not ported yet")
+        return engine
+
+    # -- capacity planning ---------------------------------------------------
+    def plan(self, hosts: int = 1) -> "CapacityPlan":
+        """Telescoped layer capacities and the memory footprint, exactly as
+        the reference plans them."""
+        self.validate()
+        if hosts < 1:
+            raise ValueError(f"hosts must be >= 1, got {hosts}")
+        cuts = self.resolved_cuts()
+        caps = list(telescoped_caps(cuts, self.top_capacity, self.batch_size))
+        itemsize = self.torch_dtype.itemsize
+        bytes_per_layer = tuple(cap * (4 + 4 + itemsize) for cap in caps)
+        n_instances = self.instances_per_device * self.resolved_devices() * int(hosts)
+        per_instance = sum(bytes_per_layer)
+        snap = (
+            int(self.snapshot_cap)
+            if self.snapshot_cap is not None
+            else sum(caps) * n_instances
+        )
+        return CapacityPlan(
+            cuts=cuts,
+            layer_caps=tuple(caps),
+            bytes_per_layer=bytes_per_layer,
+            bytes_per_instance=per_instance,
+            n_instances=n_instances,
+            total_bytes=per_instance * n_instances,
+            snapshot_cap=snap,
+            batch_size=int(self.batch_size),
+            max_fanout=int(self.max_fanout),
+            dtype_itemsize=itemsize,
+            hosts=int(hosts),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityPlan:
+    """Resolved static-shape contract of a session (see StreamConfig.plan)."""
+
+    cuts: Tuple[int, ...]
+    layer_caps: Tuple[int, ...]
+    bytes_per_layer: Tuple[int, ...]
+    bytes_per_instance: int
+    n_instances: int
+    total_bytes: int
+    snapshot_cap: int
+    batch_size: int
+    max_fanout: int
+    dtype_itemsize: int
+    hosts: int = 1
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.layer_caps)
+
+    def describe(self) -> str:
+        """Human-readable capacity/memory table."""
+        fleet = f" on {self.hosts} host(s)" if self.hosts > 1 else ""
+        lines = [
+            f"D4M capacity plan: {self.n_layers} layers, "
+            f"{self.n_instances} instance(s){fleet}, batch {self.batch_size}",
+        ]
+        for i, cap in enumerate(self.layer_caps):
+            cut = self.cuts[i] if i < len(self.cuts) else None
+            role = f"cut={cut}" if cut is not None else "top"
+            lines.append(
+                f"  layer {i + 1}: cap={cap:>12,}  {role:<16} "
+                f"{self.bytes_per_layer[i] / 1e6:10.2f} MB"
+            )
+        lines.append(
+            f"  per-instance {self.bytes_per_instance / 1e6:.2f} MB, total "
+            f"{self.total_bytes / 1e6:.2f} MB across {self.n_instances} instance(s); "
+            f"snapshot cap {self.snapshot_cap:,}"
+        )
+        return "\n".join(lines)
