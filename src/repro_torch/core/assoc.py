@@ -16,14 +16,29 @@ Bit-exactness with the reference rests on three choices:
   two float duplicates fold in the reference's order, and its interleave
   adds ``0`` like JAX's pad-and-add (``-0.0`` becomes ``+0.0``);
 * ties in :meth:`Assoc.topk` keep the lower index first, like ``lax.top_k``.
+
+Three functions dispatch to hand-written kernels on the card, as the
+reference's Pallas kernels stand in for them: :func:`add` goes to
+``merge_add``, :func:`from_triples` and :func:`_combine_sorted` go to
+``sort_dedup``.  Their plain PyTorch bodies are :func:`add_plain`,
+:func:`from_triples_plain` and :func:`combine_sorted_plain`; a CPU tensor
+takes them, a CUDA tensor launches the kernel or raises, and inside
+:func:`repro_torch.kernels.plain_versions` every tensor takes them.
+
+The operator algebra (``A + B``, ``A & B``, ``A @ B``, ``A.T``, ``A[r, :]``,
+``A[:, c]``, ``A[r, c]``) reads its output capacities and semiring from the
+active :func:`cap_policy`, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Tuple
 
 import torch
 
+from .. import kernels
 from ..device import resolve_device
 from .semiring import PLUS_TIMES, Semiring
 
@@ -37,9 +52,48 @@ def pack_keys(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     return rows.to(torch.int64) * _ROW_SCALE + (cols.to(torch.int64) + _COL_OFFSET)
 
 
+@dataclasses.dataclass(frozen=True)
+class OpPolicy:
+    """Cap policy for the operator algebra (``A + B``, ``A @ B`` ...).
+    ``None`` caps derive from the operands: ``add_cap = a.cap + b.cap``,
+    ``mul_cap = min(a.cap, b.cap)``, ``matmul_cap = a.cap + b.cap``,
+    ``row_cap = a.cap``."""
+
+    sr: Semiring = PLUS_TIMES
+    add_cap: int | None = None
+    mul_cap: int | None = None
+    matmul_cap: int | None = None
+    max_fanout: int = 32
+    row_cap: int | None = None
+
+
+_DEFAULT_POLICY = OpPolicy()
+# a ContextVar, so each thread / async task scopes its own policy
+_policy_var: contextvars.ContextVar[OpPolicy] = contextvars.ContextVar(
+    "assoc_op_policy", default=_DEFAULT_POLICY
+)
+
+
+def current_policy() -> OpPolicy:
+    """The innermost active :func:`cap_policy`, or the defaults."""
+    return _policy_var.get()
+
+
+@contextlib.contextmanager
+def cap_policy(**overrides):
+    """Scope an :class:`OpPolicy` for the operator algebra; nested blocks
+    start from the enclosing policy."""
+    token = _policy_var.set(dataclasses.replace(current_policy(), **overrides))
+    try:
+        yield _policy_var.get()
+    finally:
+        _policy_var.reset(token)
+
+
 @dataclasses.dataclass
 class Assoc:
-    """Sorted-COO hypersparse associative array with static capacity."""
+    """Sorted-COO hypersparse associative array with static capacity, with
+    the reference's operator algebra (see the module docstring)."""
 
     rows: torch.Tensor  # int32[..., cap]
     cols: torch.Tensor  # int32[..., cap]
@@ -53,6 +107,48 @@ class Assoc:
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return f"Assoc(cap={self.capacity})"
+
+    def __add__(self, other: "Assoc") -> "Assoc":
+        p = current_policy()
+        cap = p.add_cap if p.add_cap is not None else self.capacity + other.capacity
+        return add(self, other, cap=cap, sr=p.sr)
+
+    def __and__(self, other: "Assoc") -> "Assoc":
+        p = current_policy()
+        cap = p.mul_cap if p.mul_cap is not None else min(self.capacity, other.capacity)
+        return elem_mul(self, other, cap=cap, sr=p.sr)
+
+    def __matmul__(self, other: "Assoc") -> "Assoc":
+        p = current_policy()
+        cap = p.matmul_cap if p.matmul_cap is not None else self.capacity + other.capacity
+        return matmul(self, other, cap=cap, max_fanout=p.max_fanout, sr=p.sr)
+
+    @property
+    def T(self) -> "Assoc":
+        return transpose(self, sr=current_policy().sr)
+
+    def __getitem__(self, key):
+        if not (isinstance(key, tuple) and len(key) == 2):
+            raise TypeError("Assoc indexing is 2-D: A[r, :], A[:, c], or A[r, c]")
+        p = current_policy()
+        r, c = key
+        for s in (r, c):
+            if isinstance(s, slice) and s != slice(None):
+                raise TypeError(
+                    "Assoc slicing supports only the full ':' slice "
+                    "(bounded/stepped slices would silently drop keys); use "
+                    "extract_row / elem_mul masks for bounded selections"
+                )
+        r_all, c_all = isinstance(r, slice), isinstance(c, slice)
+        if r_all and c_all:
+            return self
+        row_cap = p.row_cap if p.row_cap is not None else self.capacity
+        if r_all:  # column slice via the transpose; keys stay (row, col)
+            got = extract_row(transpose(self, sr=p.sr), c, cap=row_cap, sr=p.sr)
+            return transpose(got, sr=p.sr)
+        if c_all:
+            return extract_row(self, r, cap=row_cap, sr=p.sr)
+        return get(self, r, c, sr=p.sr)
 
     def topk(self, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """The ``k`` largest values: ``(row_ids [k], values [k])``; dead
@@ -98,7 +194,25 @@ def from_triples(
     valid: torch.Tensor | None = None,
 ) -> Assoc:
     """Build an Assoc from (possibly duplicated, unsorted) triples; equal
-    keys fold with ``sr.add``.  ``valid`` masks input slots."""
+    keys fold with ``sr.add``.  ``valid`` masks input slots.  On the card
+    this is the ``sort_dedup`` kernel."""
+    if kernels.plain_active():
+        return from_triples_plain(rows, cols, vals, cap, sr, valid)
+    from ..kernels.sort_dedup import ops
+
+    return ops.from_triples(rows, cols, vals, cap, sr, valid)
+
+
+def from_triples_plain(
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    cap: int,
+    sr: Semiring = PLUS_TIMES,
+    valid: torch.Tensor | None = None,
+) -> Assoc:
+    """The plain PyTorch :func:`from_triples`: one stable sort, then
+    :func:`combine_sorted_plain`."""
     rows = rows.to(torch.int32)
     cols = cols.to(torch.int32)
     if valid is not None:
@@ -106,7 +220,7 @@ def from_triples(
         cols = torch.where(valid, cols, PAD)
         vals = torch.where(valid, vals, torch.full_like(vals, sr.zero))
     order = torch.sort(pack_keys(rows, cols), dim=-1, stable=True).indices
-    return _combine_sorted(
+    return combine_sorted_plain(
         torch.gather(rows, -1, order),
         torch.gather(cols, -1, order),
         torch.gather(vals, -1, order),
@@ -155,8 +269,19 @@ def _scan(keys: torch.Tensor, vals: torch.Tensor, sr: Semiring):
 
 
 def _combine_sorted(rows, cols, vals, cap: int, sr: Semiring) -> Assoc:
-    """Fold duplicate keys of sorted triples with ``sr.add`` and compact the
-    survivors into a fresh Assoc of capacity ``cap``; PAD slots drop."""
+    """Fold each run of equal adjacent keys with ``sr.add`` and compact the
+    survivors into a fresh Assoc of capacity ``cap``; PAD slots drop.  On
+    the card this is the fold stage of the ``sort_dedup`` kernel."""
+    if kernels.plain_active():
+        return combine_sorted_plain(rows, cols, vals, cap, sr)
+    from ..kernels.sort_dedup import ops
+
+    return ops.combine_sorted(rows, cols, vals, cap, sr)
+
+
+def combine_sorted_plain(rows, cols, vals, cap: int, sr: Semiring) -> Assoc:
+    """The plain PyTorch :func:`_combine_sorted`: :func:`_scan`, then
+    :func:`_compact` of the run ends."""
     _, acc = _scan(pack_keys(rows, cols), vals, sr)
     tail = torch.full_like(rows[..., :1], -1)
     nxt_r = torch.cat([rows[..., 1:], tail], dim=-1)
@@ -207,8 +332,18 @@ def lex_searchsorted(kr, kc, qr, qc, side: str = "left") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def add(a: Assoc, b: Assoc, cap: int | None = None, sr: Semiring = PLUS_TIMES) -> Assoc:
-    """``C = A (+) B``: merge by rank, then fold equal keys as
-    ``sr.add(a, b)`` (``a`` on the left)."""
+    """``C = A (+) B``: the union, equal keys folded as ``sr.add(a, b)``
+    (``a`` on the left).  On the card this is the ``merge_add`` kernel."""
+    if kernels.plain_active():
+        return add_plain(a, b, cap, sr)
+    from ..kernels.merge_add import ops
+
+    return ops.merge_add(a, b, cap, sr)
+
+
+def add_plain(a: Assoc, b: Assoc, cap: int | None = None, sr: Semiring = PLUS_TIMES) -> Assoc:
+    """The plain PyTorch :func:`add`: merge by rank, then
+    :func:`combine_sorted_plain`."""
     if cap is None:
         cap = a.capacity + b.capacity
     m, n = a.capacity, b.capacity
@@ -222,7 +357,7 @@ def add(a: Assoc, b: Assoc, cap: int | None = None, sr: Semiring = PLUS_TIMES) -
     def merge(dst, xa, xb):
         return dst.scatter_(-1, pos_a, xa).scatter_(-1, pos_b, xb)
 
-    res = _combine_sorted(
+    res = combine_sorted_plain(
         merge(out.rows, a.rows, b.rows),
         merge(out.cols, a.cols, b.cols),
         merge(out.vals, a.vals, b.vals),
@@ -284,6 +419,81 @@ def extract_row(a: Assoc, r, cap: int, sr: Semiring = PLUS_TIMES) -> Assoc:
     cols = torch.where(keep, a.cols, PAD)
     vals = torch.where(keep, a.vals, torch.full_like(a.vals, sr.zero))
     return _combine_sorted(rows, cols, vals, cap, sr)
+
+
+def nnz(a: Assoc) -> torch.Tensor:
+    return a.nnz
+
+
+# ---------------------------------------------------------------------------
+# element-wise multiplication (database intersection)
+# ---------------------------------------------------------------------------
+
+def elem_mul(a: Assoc, b: Assoc, cap: int | None = None, sr: Semiring = PLUS_TIMES) -> Assoc:
+    """``C = A (x) B``: element-wise semiring multiplication (intersection)."""
+    if cap is None:
+        cap = min(a.capacity, b.capacity)
+    idx = torch.clamp(lex_searchsorted(b.rows, b.cols, a.rows, a.cols), max=b.capacity - 1)
+    b_rows = torch.gather(b.rows, -1, idx)
+    b_cols = torch.gather(b.cols, -1, idx)
+    b_vals = torch.gather(b.vals, -1, idx)
+    hit = (b_rows == a.rows) & (b_cols == a.cols) & (a.rows != PAD)
+    vals = torch.where(hit, sr.mul(a.vals, b_vals), torch.full_like(a.vals, sr.zero))
+    rows = torch.where(hit, a.rows, PAD)
+    cols = torch.where(hit, a.cols, PAD)
+    # a subset of A's order with PAD holes: runs of one, combine/compact
+    out = _combine_sorted(rows, cols, vals, cap, sr)
+    out.overflow = out.overflow | a.overflow | b.overflow
+    return out
+
+
+# ---------------------------------------------------------------------------
+# array multiplication C = A (+).(x) B (table transformation)
+# ---------------------------------------------------------------------------
+
+def matmul(a: Assoc, b: Assoc, cap: int, max_fanout: int, sr: Semiring = PLUS_TIMES) -> Assoc:
+    """Semiring spGEMM by sort-merge join on the inner key.  Each A-entry
+    joins at most ``max_fanout`` B-entries sharing its inner key; a larger
+    true fanout sets ``overflow`` (the entries beyond the bound drop).
+    ``cap`` bounds the output nonzeros.  The ``m * max_fanout`` products go
+    through :func:`from_triples`."""
+    at = transpose(a, sr=sr)  # sorted by (inner key = A's col, A's row)
+    b_rows = b.rows.contiguous()
+    lo = torch.searchsorted(b_rows, at.rows.contiguous())
+    hi = torch.searchsorted(b_rows, at.rows.contiguous(), right=True)
+    live = at.rows != PAD
+    clipped = torch.any(((hi - lo) > max_fanout) & live, dim=-1)
+    m, f = at.capacity, int(max_fanout)
+    batch = at.rows.shape[:-1]
+    idx = lo.unsqueeze(-1) + torch.arange(f, device=lo.device)  # [..., m, f]
+    ok = (idx < hi.unsqueeze(-1)) & live.unsqueeze(-1)
+    flat = torch.clamp(idx, max=b.capacity - 1).reshape(batch + (m * f,))
+
+    def take(x):
+        return torch.gather(x, -1, flat).reshape(batch + (m, f))
+
+    prod_rows = torch.where(ok, at.cols.unsqueeze(-1), PAD)  # AT.col is A's row key
+    prod_cols = torch.where(ok, take(b.cols), PAD)
+    prod_vals = sr.mul(at.vals.unsqueeze(-1), take(b.vals))
+    prod_vals = torch.where(ok, prod_vals, torch.full_like(prod_vals, sr.zero))
+    out = from_triples(
+        prod_rows.reshape(batch + (m * f,)),
+        prod_cols.reshape(batch + (m * f,)),
+        prod_vals.reshape(batch + (m * f,)),
+        cap,
+        sr,
+    )
+    out.overflow = out.overflow | clipped | a.overflow | b.overflow
+    return out
+
+
+def to_dense(a: Assoc, nrows: int, ncols: int, sr: Semiring = PLUS_TIMES) -> torch.Tensor:
+    """Materialize as dense (small arrays and tests only); keys outside the
+    ``nrows x ncols`` box (PAD slots among them) drop."""
+    dense = torch.full((nrows, ncols), sr.zero, dtype=a.vals.dtype, device=a.vals.device)
+    ok = (a.rows >= 0) & (a.rows < nrows) & (a.cols >= 0) & (a.cols < ncols)
+    dense[a.rows[ok].long(), a.cols[ok].long()] = a.vals[ok]
+    return dense
 
 
 def is_sorted_unique(a: Assoc) -> torch.Tensor:

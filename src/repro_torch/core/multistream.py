@@ -108,6 +108,11 @@ def nnz_total(h: HierAssoc) -> torch.Tensor:
     return nnz_per_instance(h).sum(dtype=torch.int32)
 
 
+def cascades_per_instance(h: HierAssoc) -> torch.Tensor:
+    """Per-instance cascade counters; ``[K, n_layers]`` int32."""
+    return h.cascades
+
+
 def overflowed_per_instance(h: HierAssoc) -> torch.Tensor:
     """Sticky per-instance overflow flags; ``[K]`` bool."""
     return hierarchical.overflowed(h)

@@ -1,6 +1,6 @@
 // Block-level in-place merge of two sorted, unique-key COO lists with a
-// semiring fold: the shared device routine of the port's merge kernels
-// (hier_cascade now; merge_add reuses it).
+// semiring fold (hier_cascade's merge), and the key, fold and search
+// helpers every kernel of the port shares (merge_add, sort_dedup).
 //
 // Keys are (row, col) int32 pairs ordered lexicographically, compared as the
 // int64 key (row << 32) + (col + 2^31).  Dead slots carry PAD keys and sit
@@ -27,6 +27,8 @@
 // Every written value gets "+ 0.0f", which turns -0.0 into +0.0 exactly as
 // the reference's associative-scan interleave does.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <cstdint>
 
@@ -57,6 +59,48 @@ __device__ __forceinline__ float fold_add(int fold, float dst, float src) {
     default:  // kFoldFirst
       return dst;
   }
+}
+
+// Value types the kernels take (float32 and bfloat16): every fold runs in
+// float32 and rounds back to the value type after each operation, as a
+// PyTorch elementwise op on the value type does.
+template <typename T>
+struct Value;
+
+template <>
+struct Value<float> {
+  static __device__ __forceinline__ float to_float(float x) { return x; }
+  static __device__ __forceinline__ float from_float(float x) { return x; }
+  static __device__ __forceinline__ float from_bits(uint32_t b) {
+    return __uint_as_float(b);
+  }
+};
+
+template <>
+struct Value<__nv_bfloat16> {
+  static __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 from_float(float x) {
+    return __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 from_bits(uint32_t b) {
+    return __ushort_as_bfloat16(static_cast<unsigned short>(b));
+  }
+};
+
+// sr.add(dst, src) on the value type
+template <typename T>
+__device__ __forceinline__ T fold_value(int fold, T dst, T src) {
+  return Value<T>::from_float(
+      fold_add(fold, Value<T>::to_float(dst), Value<T>::to_float(src)));
+}
+
+// "+ 0.0": what the reference's scan interleave does to every value it
+// writes (-0.0 becomes +0.0, a NaN becomes the canonical NaN)
+template <typename T>
+__device__ __forceinline__ T plus_zero(T x) {
+  return Value<T>::from_float(Value<T>::to_float(x) + 0.0f);
 }
 
 // First index in [0, n) whose key is >= q (kUpper = false) or > q (true).

@@ -10,6 +10,7 @@ Quick start::
     for rows, cols, vals in edge_groups:
         sess.ingest(rows, cols, vals)
     A = sess.snapshot(cap=...)
+    neighbours = A[some_vertex, :]
     ids, counts = sess.query.top_k(5)
 """
 from repro_torch.core.assoc import PAD, Assoc, empty, from_triples  # noqa: F401
@@ -27,8 +28,15 @@ from repro_torch.core.semiring import (  # noqa: F401  (re-exported registry)
     Semiring,
 )
 
+from .algebra import OpPolicy, cap_policy, current_policy
 from .config import CapacityPlan, StreamConfig
-from .session import D4MStream, QueryNamespace, build_update_step, scan_ingest
+from .session import (
+    D4MStream,
+    QueryNamespace,
+    build_update_step,
+    scan_ingest,
+    scan_ingest_and_snapshot,
+)
 
 __all__ = [
     "Assoc",
@@ -37,11 +45,15 @@ __all__ = [
     "empty",
     "from_triples",
     "D4MStream",
+    "OpPolicy",
     "QueryNamespace",
     "Semiring",
     "StreamConfig",
     "build_update_step",
+    "cap_policy",
+    "current_policy",
     "scan_ingest",
+    "scan_ingest_and_snapshot",
     "PLUS_TIMES",
     "MAX_PLUS",
     "MIN_PLUS",

@@ -3,7 +3,9 @@
 :class:`D4MStream` runs one of three engines, picked from its
 :class:`~repro_torch.d4m.config.StreamConfig` and its device:
 
-* ``single``: K=1, the cond cascade (:func:`hierarchical.update_triples`);
+* ``single``: K=1, the cond cascade (:func:`hierarchical.update_triples`),
+  whose canonicalization and merges run in the ``sort_dedup`` and
+  ``merge_add`` kernels on the card (through :mod:`repro_torch.core.assoc`);
 * ``packed``: K>1, the branchless cascade over the ``[K]`` axis
   (:func:`multistream.packed_update`), the choice on the CPU;
 * ``cuda``: K>=1, the lane-skipping ``hier_cascade`` kernel
@@ -86,6 +88,29 @@ def scan_ingest(
     return h, torch.stack(trace)
 
 
+def scan_ingest_and_snapshot(
+    h: HierAssoc,
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    cuts: Sequence[int],
+    cap: int,
+    sr: Semiring = PLUS_TIMES,
+    instances: int | None = None,
+):
+    """Stream ingest followed by a full snapshot: ``(h, snapshot, trace)``.
+    With ``instances=K`` the stream is ``[T, K, B]`` into a packed hierarchy
+    and the snapshot is the global array (the semiring sum of the K
+    per-instance snapshots)."""
+    h2, trace = scan_ingest(h, rows, cols, vals, cuts, sr, instances=instances)
+    if instances is None:
+        snap = hierarchical.snapshot(h2, cap=cap, sr=sr)
+    else:
+        per = multistream.snapshot_packed(h2, cap=cap, sr=sr)
+        snap = multistream.merge_snapshots(per, cap=cap, sr=sr)
+    return h2, snap, trace
+
+
 # ---------------------------------------------------------------------------
 # the read side
 # ---------------------------------------------------------------------------
@@ -101,7 +126,7 @@ class QueryNamespace:
         """(out_degree, in_degree) keyed ``(vertex, 0)``, cached until the
         next update."""
         s = self._s
-        cap = int(cap) if cap is not None else s.plan.snapshot_cap
+        cap = self._cap(cap)
         if cap not in s._degree_cache:
             s._degree_cache[cap] = analytics.degrees(s.snapshot(), cap=cap, sr=s.sr)
         return s._degree_cache[cap]
@@ -111,11 +136,40 @@ class QueryNamespace:
         out_deg, in_deg = self.degrees()
         return analytics.top_k_vertices(out_deg if by == "out" else in_deg, k)
 
+    def _cap(self, cap: int | None) -> int:
+        return int(cap) if cap is not None else self._s.plan.snapshot_cap
+
+    def triangles(self, cap_sq: int | None = None, max_fanout: int | None = None) -> torch.Tensor:
+        """Triangle count of the undirected support (tr(A^3)/6), over the
+        boolean support under plus.times whatever the session's semiring."""
+        s = self._s
+        und = analytics.undirected_view(s.snapshot(), cap=2 * s.plan.snapshot_cap, sr=PLUS_TIMES)
+        return analytics.triangle_count(
+            und,
+            cap_sq=cap_sq if cap_sq is not None else 4 * s.plan.snapshot_cap,
+            max_fanout=max_fanout if max_fanout is not None else s.plan.max_fanout,
+        )
+
+    def common_neighbors(self, u: int, v: int, cap: int | None = None) -> torch.Tensor:
+        return analytics.common_neighbors(self._s.snapshot(), u, v, cap=self._cap(cap))
+
+    def jaccard(self, u: int, v: int, cap: int | None = None) -> torch.Tensor:
+        return analytics.jaccard(self._s.snapshot(), u, v, cap=self._cap(cap))
+
+    def reachable_within(
+        self, steps: int, cap: int | None = None, max_fanout: int | None = None
+    ) -> Assoc:
+        return analytics.reachable_within(
+            self._s.snapshot(),
+            steps,
+            cap=self._cap(cap),
+            max_fanout=max_fanout if max_fanout is not None else self._s.plan.max_fanout,
+        )
+
     def row(self, r: int, cap: int | None = None) -> Assoc:
         """Row slice ``A(r, :)``."""
         s = self._s
-        cap = int(cap) if cap is not None else s.plan.snapshot_cap
-        return assoc.extract_row(s.snapshot(), r, cap=cap, sr=s.sr)
+        return assoc.extract_row(s.snapshot(), r, cap=self._cap(cap), sr=s.sr)
 
     def get(self, r, c) -> torch.Tensor:
         """Point query ``A(r, c)``."""

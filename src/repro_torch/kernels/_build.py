@@ -23,7 +23,11 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
 #: kernel name -> its source under ``csrc`` (headers there are shared)
-KERNELS = {"hier_cascade": "hier_cascade.cu"}
+KERNELS = {
+    "hier_cascade": "hier_cascade.cu",
+    "merge_add": "merge_add.cu",
+    "sort_dedup": "sort_dedup.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

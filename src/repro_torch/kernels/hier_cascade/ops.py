@@ -23,8 +23,8 @@ layer buffers are updated in place and the returned hierarchy is the new
 state.
 
 The batch is canonicalized in front of the kernel with the same
-``assoc.from_triples`` the other engines use (plain torch, outside any
-kernel, as the reference leaves it to XLA).
+``assoc.from_triples`` the other engines use, which on the card is the
+``sort_dedup`` kernel (:mod:`repro_torch.kernels.sort_dedup`).
 """
 from __future__ import annotations
 
@@ -66,7 +66,8 @@ def cascade_step_plain(
     bufs, nnz, cascades, overflow, batch: Assoc, cuts, caps, sr, merges=None
 ):
     """The plain PyTorch version of one kernel step, on the flat state
-    (updated in place): a loop over lanes in cond form over ``assoc.add``.
+    (updated in place): a loop over lanes in cond form over
+    ``assoc.add_plain`` (plain on every device).
     The Python ``if`` on each cut reads ``nnz`` back to the host; that sync
     is accepted here.
 
@@ -88,10 +89,10 @@ def cascade_step_plain(
 
     for k in range(nnz.shape[0]):
         b = Assoc(batch.rows[k], batch.cols[k], batch.vals[k], batch.nnz[k], batch.overflow[k])
-        store(0, k, assoc.add(lane(0, k), b, cap=caps[0], sr=sr), b.nnz, False)
+        store(0, k, assoc.add_plain(lane(0, k), b, cap=caps[0], sr=sr), b.nnz, False)
         for i, cut in enumerate(cuts):
             if int(nnz[k, i]) > cut:  # the lane skip, as a host-side branch
-                merged = assoc.add(lane(i + 1, k), lane(i, k), cap=caps[i + 1], sr=sr)
+                merged = assoc.add_plain(lane(i + 1, k), lane(i, k), cap=caps[i + 1], sr=sr)
                 store(i + 1, k, merged, nnz[k, i], True)
                 r, c, v = bufs[i]
                 r[k], c[k], v[k] = PAD, PAD, sr.zero

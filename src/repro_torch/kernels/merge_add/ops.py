@@ -1,0 +1,110 @@
+"""``C = A (+) B`` through the ``merge_add`` kernel.
+
+Port of ``repro/kernels/merge_add/ops.py``.  :func:`merge_add` is the
+drop-in equivalent of ``assoc.add``, which dispatches to it for CUDA
+tensors: the same keys, values (bit for bit), ``nnz`` and overflow flags as
+:func:`repro_torch.core.assoc.add_plain`, its plain PyTorch version.
+
+The kernel (``repro_torch/csrc/merge_add.cu``) replaces the TPU kernel
+``repro/kernels/merge_add/kernel.py:75`` (``merge_add_pallas``).  It is
+bound by the bytes it moves: each live input entry read once and each
+output entry written once (12 B an entry in float32, 10 B in bfloat16).
+It reads only the live prefixes and spreads one merge over the whole card
+in five launches: binary searches place every entry by rank, and a scan of
+the keys both inputs share closes the gaps (see the note at the top of the
+source).  It takes leading batch axes (one group per batch index),
+float32 and bfloat16 values; other types raise ``NotImplementedError``.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.  Nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.assoc import Assoc, add_plain
+from repro_torch.core.semiring import PLUS_TIMES, Semiring
+
+from .. import _build, _launch
+
+#: wrapper calls that launched the kernel (the chip smoke test zeroes it)
+launch_count = 0
+
+
+def _lib():
+    lib = _build.load("merge_add")
+    if lib.merge_add_run.argtypes is None:
+        vp, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.merge_add_run.argtypes = (
+            [ctypes.c_int, i64] + [vp] * 5 + [i64] + [vp] * 5 + [i64] + [vp] * 5
+            + [i64] + [vp] * 5 + [ctypes.c_int, ctypes.c_uint32, vp]
+        )
+        lib.merge_add_run.restype = ctypes.c_int
+        lib.merge_add_error_string.argtypes = [ctypes.c_int]
+        lib.merge_add_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def merge_add(a: Assoc, b: Assoc, cap: int | None = None, sr: Semiring = PLUS_TIMES) -> Assoc:
+    """``C = A (+) B``: equal keys fold as ``sr.add(a, b)``; the result is
+    truncated to ``cap`` (default ``a.capacity + b.capacity``)."""
+    if a.rows.device.type == "cpu":
+        return add_plain(a, b, cap, sr)
+    return merge_add_kernel(a, b, cap, sr)
+
+
+def merge_add_kernel(a: Assoc, b: Assoc, cap: int | None, sr: Semiring) -> Assoc:
+    """Launch the CUDA kernel (inputs must hold the Assoc invariant)."""
+    global launch_count
+    m, n = a.capacity, b.capacity
+    cap = m + n if cap is None else int(cap)
+    batch = a.rows.shape[:-1]
+    if b.rows.shape[:-1] != batch:
+        raise ValueError(f"batch axes differ: {tuple(batch)} and {tuple(b.rows.shape[:-1])}")
+    if a.vals.dtype != b.vals.dtype:
+        raise ValueError(f"value types differ: {a.vals.dtype} and {b.vals.dtype}")
+    code = _launch.dtype_code(a.vals, "merge_add")
+    dev = _launch.check_cuda(
+        "merge_add", a.rows, a.cols, a.vals, a.nnz, a.overflow,
+        b.rows, b.cols, b.vals, b.nnz, b.overflow,
+    )
+    g = 1
+    for d in batch:
+        g *= int(d)
+    if max(m, n, cap) > _launch.INT32_LIMIT or g * max(n, 1) > _launch.INT32_LIMIT:
+        raise ValueError("merge_add takes widths and group sizes below 2**31")
+    dt = a.vals.dtype
+    out = Assoc(
+        rows=torch.empty(batch + (cap,), dtype=torch.int32, device=dev),
+        cols=torch.empty(batch + (cap,), dtype=torch.int32, device=dev),
+        vals=torch.empty(batch + (cap,), dtype=dt, device=dev),
+        nnz=torch.empty(batch, dtype=torch.int32, device=dev),
+        overflow=torch.empty(batch, dtype=torch.bool, device=dev),
+    )
+    if g == 0:
+        return out
+    i32 = torch.int32
+    ar, ac, av = (_launch.flat(x, g, m, t) for x, t in ((a.rows, i32), (a.cols, i32), (a.vals, dt)))
+    br, bc, bv = (_launch.flat(x, g, n, t) for x, t in ((b.rows, i32), (b.cols, i32), (b.vals, dt)))
+    a_nnz, b_nnz = (x.to(i32).reshape(g).contiguous() for x in (a.nnz, b.nnz))
+    a_ov, b_ov = (x.to(torch.bool).reshape(g).contiguous() for x in (a.overflow, b.overflow))
+    tiles = g * _launch.n_tiles(n)
+    scratch = torch.empty(2 * g * n + 2 * tiles + 1 + g, dtype=i32, device=dev)
+    code_b, dupb, counts, off, dups = torch.split(
+        scratch, [g * n, g * n, tiles, tiles + 1, g]
+    )
+    lib = _lib()
+    err = lib.merge_add_run(
+        code, g,
+        ar.data_ptr(), ac.data_ptr(), av.data_ptr(), a_nnz.data_ptr(), a_ov.data_ptr(), m,
+        br.data_ptr(), bc.data_ptr(), bv.data_ptr(), b_nnz.data_ptr(), b_ov.data_ptr(), n,
+        out.rows.data_ptr(), out.cols.data_ptr(), out.vals.data_ptr(),
+        out.nnz.data_ptr(), out.overflow.data_ptr(), cap,
+        code_b.data_ptr(), dupb.data_ptr(), counts.data_ptr(), off.data_ptr(), dups.data_ptr(),
+        sr.fold, _launch.zero_bits(sr.zero, dt), _launch.stream(dev),
+    )
+    _launch.raise_on(err, lib, "merge_add", "merge_add")
+    launch_count += 1
+    return out

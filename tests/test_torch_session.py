@@ -2,18 +2,22 @@
 
 One ``repro.d4m.StreamConfig`` goes to both packages through its
 ``to_dict()`` wire form, the same numpy batches go through ``ingest``, and
-snapshots, ``nnz``, ``overflowed``, the telemetry arrays and
-``query.top_k`` must be bit-identical.  The reference's ``pallas`` engine
+snapshots, ``nnz``, ``overflowed``, the telemetry arrays,
+``query.top_k`` and the graph queries must be bit-identical.  The reference's ``pallas`` engine
 is held against the port's ``cuda`` engine (its plain version, on the CPU).
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro import d4m as jd4m
 from repro.core import analytics as jan
+from repro.core import assoc as jas
 from repro.core import hierarchical as jh
+from repro.core import multistream as jm
+from repro.d4m import session as jsession
 from repro_torch import d4m as td4m
 from repro_torch.core import assoc as tassoc
 from repro_torch.core import convert
@@ -176,3 +180,55 @@ def test_state_carried_across(engine):
     for t in range(3):
         assert int(ref.ingest(r[t], c[t], v[t])) == int(port.ingest(r[t], c[t], v[t]))
     _assert_sessions_same(port, ref)
+
+
+def test_single_session_graph_queries_match_reference():
+    """``query.triangles/common_neighbors/jaccard/reachable_within/row/get``
+    of a ``single`` session against the reference's analytics on the
+    reference session's snapshot, bit for bit."""
+    ref, port = _pair("auto", 1, cuts=(8, 32), top=256)
+    assert port.kind == "single"
+    _feed([ref, port], 6, 6, 16, space=24)
+    snap = ref.snapshot()
+    plan = ref.plan
+    und = jax.jit(jan.undirected_view, static_argnames=("cap", "sr"))(
+        snap, cap=2 * plan.snapshot_cap, sr=jd4m.PLUS_TIMES
+    )
+    tri = jax.jit(jan.triangle_count, static_argnames=("cap_sq", "max_fanout", "sr"))(
+        und, cap_sq=4 * plan.snapshot_cap, max_fanout=plan.max_fanout
+    )
+    assert_same(port.query.triangles(), tri, "triangles")
+    assert float(port.query.triangles()) > 0
+    for u, v in ((1, 2), (3, 3)):
+        want = jax.jit(jan.common_neighbors, static_argnames=("u", "v", "cap", "sr"))(
+            snap, u=u, v=v, cap=plan.snapshot_cap)
+        assert_same(port.query.common_neighbors(u, v), want, "common_neighbors")
+        want = jax.jit(jan.jaccard, static_argnames=("u", "v", "cap", "sr"))(
+            snap, u=u, v=v, cap=plan.snapshot_cap)
+        assert_same(port.query.jaccard(u, v), want, "jaccard")
+    want = jax.jit(jan.reachable_within, static_argnames=("steps", "cap", "max_fanout", "sr"))(
+        snap, steps=2, cap=plan.snapshot_cap, max_fanout=plan.max_fanout)
+    assert_assoc_same(port.query.reachable_within(2), want, "reachable_within")
+    assert_assoc_same(port.query.row(3), jax.jit(jas.extract_row, static_argnames=("cap", "sr"))(
+        snap, 3, cap=plan.snapshot_cap), "row")
+    assert_same(port.query.get(3, 5), jas.get(snap, 3, 5), "get")
+
+
+@pytest.mark.parametrize("k", [None, 4])
+def test_scan_ingest_and_snapshot_matches_reference(k):
+    cuts = (8, 32)
+    shape = (5, 16) if k is None else (5, k, 16)
+    r, c, v = stream(7, shape, 24)
+    if k is None:
+        hj, ht = jh.init(cuts, 256, 16), th.init(cuts, 256, 16, device="cpu")
+    else:
+        hj = jax.vmap(lambda _: jh.init(cuts, 256, 16))(jnp.arange(k))
+        ht = tm.init_packed(k, cuts, 256, 16, device="cpu")
+    want = jsession.scan_ingest_and_snapshot(hj, r, c, v, cuts, 512, instances=k)
+    got = td4m.scan_ingest_and_snapshot(
+        ht, torch.tensor(r), torch.tensor(c), torch.tensor(v), cuts, 512, instances=k
+    )
+    assert_assoc_same(got[1], want[1], "snapshot")
+    assert_same(got[2], want[2], "trace")
+    if k is not None:
+        assert_same(tm.cascades_per_instance(got[0]), jm.cascades_per_instance(want[0]))
