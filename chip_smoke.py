@@ -16,7 +16,10 @@ Phases, each of which asserts (any failure exits non-zero):
 3. hold ``merge_add`` and ``sort_dedup`` against their plain versions, bit
    for bit: every fold code, float32 and bfloat16, NaN and -0.0, leading
    batch axes, caps below the union, empty inputs, one huge run, ~1 M
-   entries;
+   entries; and ``scatter_add``: float32 and bfloat16 tables and rows, PAD
+   tails, NaN and -0.0 with row 0 live or dead (C10), negative and
+   out-of-range ids, k = 0, d of 1, 3 and 4096, a misaligned table, and the
+   embedding path's own shape;
 4. make the R-MAT stream once (200 groups of 100,000 scale-20 edges,
    ``configs/d4m_stream.CONFIG``) and count it with numpy;
 5. the ``cuda`` engine at full width: K=8 hash-routed instances of the
@@ -37,7 +40,18 @@ Phases, each of which asserts (any failure exits non-zero):
 9. the algebra and graph queries on a uniform random graph (2^16
    vertices, 500,000 edges, ``max_fanout`` 64), kernels against plain bit
    for bit, triangles against scipy's ``trace(A^3)/6``;
-10. print a ``{"kernels": [...]}`` line, the card's name and power limit,
+10. the embedding-gradient path at granite-3-8b's full width (after the
+    streaming phases' state is freed): one optimizer window of 256
+    microbatches of 4096 tokens (``TokenStream``, Zipf 1.3) into the
+    hierarchical row accumulator, ``hier_flush``, ``dense_grad_of``
+    (``scatter_add`` into a [49,664, 4096] float32 table) and lazy AdamW on
+    the bfloat16 table; through the kernel and inside ``plain_versions()``,
+    bit-identical, against the dense ``index_add_`` baseline (summed in
+    float64) at ``rtol=1e-4, atol=1e-5``, with nnz equal to numpy's
+    distinct count;
+    then ``scatter_add`` alone at that shape, with its bound, plain version
+    and ``index_add_`` of the live prefix as a yardstick;
+11. print a ``{"kernels": [...]}`` line, the card's name and power limit,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path and read just after;
@@ -49,6 +63,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -215,21 +230,26 @@ def assoc_same(torch, got, want, what: str) -> float:
     """Bitwise equality of two Assocs (values compared by bit pattern);
     returns the max abs value error (0.0 when identical), raising on any
     difference."""
-    err = 0.0
     for f in ("rows", "cols", "vals", "nnz", "overflow"):
-        g, w = getattr(got, f), getattr(want, f)
-        check(g.shape == w.shape and g.dtype == w.dtype, (what, f, g.shape, w.shape, g.dtype, w.dtype))
-        if g.dtype.is_floating_point:
-            bits = torch.int16 if g.element_size() == 2 else torch.int32
-            same = torch.equal(g.view(bits), w.view(bits))
-            if not same:
-                both = torch.isfinite(g) & torch.isfinite(w)
-                err = float((g[both].float() - w[both].float()).abs().max()) if both.any() else float("inf")
-        else:
-            same = torch.equal(g, w)
-        if not same:
-            raise RuntimeError(f"{what}: {f} differs (max abs value error {err})")
-    return err
+        bits_same(torch, getattr(got, f), getattr(want, f), f"{what}: {f}")
+    return 0.0
+
+
+def bits_same(torch, got, want, what) -> float:
+    """Bitwise equality of two tensors (floats by their bits); returns the
+    max abs value error (0.0 when identical), raising on any difference."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          (what, got.shape, want.shape, got.dtype, want.dtype))
+    if got.dtype.is_floating_point:
+        bits = torch.int16 if got.element_size() == 2 else torch.int32
+        if torch.equal(got.view(bits), want.view(bits)):
+            return 0.0
+        both = torch.isfinite(got) & torch.isfinite(want)
+        err = float((got[both].float() - want[both].float()).abs().max()) if both.any() else float("inf")
+        raise RuntimeError(f"{what}: differs (max abs value error {err})")
+    if not torch.equal(got, want):
+        raise RuntimeError(f"{what}: differs")
+    return 0.0
 
 
 def random_triples(torch, np, rng, shape, space, special, dtype):
@@ -347,12 +367,13 @@ def phase_parity_ops(torch, np):
 
 
 def counters():
-    """The launch counters of the three kernels' wrappers."""
+    """The launch counters of the four kernels' wrappers."""
     from repro_torch.kernels.hier_cascade import ops as hc
     from repro_torch.kernels.merge_add import ops as ma
+    from repro_torch.kernels.scatter_add import ops as sa
     from repro_torch.kernels.sort_dedup import ops as sd
 
-    return {"hier_cascade": hc, "merge_add": ma, "sort_dedup": sd}
+    return {"hier_cascade": hc, "merge_add": ma, "scatter_add": sa, "sort_dedup": sd}
 
 
 def zero_counts() -> None:
@@ -437,7 +458,7 @@ def phase_main(torch, np, data):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    check(launches == {"hier_cascade": STEPS, "sort_dedup": STEPS, "merge_add": 0}, launches)
+    check(launches == {"hier_cascade": STEPS, "sort_dedup": STEPS, "merge_add": 0, "scatter_add": 0}, launches)
     rate = n_edges / wall
     log(f"[main] ingest: {STEPS} groups in {wall:.3f} s = {rate:,.0f} updates/s, "
         f"launches {launches}")
@@ -808,6 +829,304 @@ def phase_kernel_times(torch, np, data, main, single):
     return rows
 
 
+# granite-3-8b's table rows and width, the flushed accumulator's slots
+# (its top layer's capacity) and about its live ids
+SCATTER_PATH = (49_664, 4096, 127_488, 25_000)
+# (name, V, d, live ids, PAD slots, row 0 live, negative/out-of-range ids)
+SCATTER_CASES = [
+    ("k0", 16, 4096, 0, 0, False, False),
+    ("d1", 64, 1, 20, 8, True, False),
+    ("d3", 64, 3, 20, 8, False, False),
+    ("d4096", 1000, 4096, 300, 100, True, False),
+    ("no-pad", 64, 24, 30, 0, False, False),
+    ("pad-row0-dead", 64, 24, 30, 10, False, False),
+    ("pad-row0-live", 64, 24, 30, 10, True, False),
+    ("all-pad", 64, 24, 0, 12, False, False),
+    ("wrap-drop", 64, 40, 30, 10, True, True),
+    ("wrap-drop-d4096", 512, 4096, 200, 50, False, True),
+]
+
+
+def scatter_inputs(torch, np, rng, v, d, live, pads, row0, wrap, rows_dtype, table_dtype):
+    """Sorted unique ids (``live`` of them, row 0 among them or not; with
+    ``wrap``, negative ids, some landing on rows a non-negative id adds to,
+    and ids >= V) and a PAD tail; NaN and -0.0 in the table and the live
+    rows, NaN in every PAD row, -0.0 and NaN in row 0."""
+    from repro_torch.core.assoc import PAD
+
+    pool = np.arange(1, v)
+    ids = rng.choice(pool, size=min(live, v - 1), replace=False)
+    if row0 and live:
+        ids[0] = 0
+    if wrap and live:
+        k = max(1, live // 5)
+        ids[:k] = -rng.choice(np.arange(1, v + 1), size=k, replace=False)  # -V .. -1
+        ids[k:2 * k] = v + rng.integers(0, 3 * v, size=k)  # dropped
+    ids = np.unique(ids)
+    ids = np.concatenate([ids, np.full(pads, PAD)]).astype(np.int32)
+    k = ids.size
+    vals = lambda shape: special_values(torch, np, rng, shape)
+    rows = vals((k, d))
+    rows[ids.size - pads:] = float("nan")
+    table = vals((v, d))
+    table[0, : (d + 1) // 2] = -0.0
+    table[0, (d + 1) // 2:] = float("nan") if d > 1 else -0.0
+    return torch.tensor(ids, device=DEVICE), rows.to(rows_dtype), table.to(table_dtype)
+
+
+def phase_parity_scatter(torch, np):
+    """``scatter_add`` against its plain version on the card, bit for bit:
+    float32 and bfloat16 tables, each with float32 and bfloat16 rows; PAD
+    tails with NaN in the PAD rows; -0.0 and NaN in the table and in live
+    rows, row 0 live or dead, with PADs present or not (C10); negative ids
+    (some onto rows a non-negative id adds to) and ids >= V; k = 0; d of 1,
+    3 and 4096; a misaligned table (the scalar path); and the embedding
+    path's own shape, 127,488 slots of which ~25,000 live into
+    [49,664, 4096]."""
+    from repro_torch.core.assoc import PAD
+    from repro_torch.kernels.scatter_add import ops as sa
+
+    rng = np.random.default_rng(1313)
+    cases = 0
+    dts = (torch.float32, torch.bfloat16)
+    for table_dtype in dts:
+        for rows_dtype in dts:
+            tag = f"table {str(table_dtype)[6:]}, rows {str(rows_dtype)[6:]}"
+            for name, v, d, live, pads, row0, wrap in SCATTER_CASES:
+                ids, rows, table = scatter_inputs(torch, np, rng, v, d, live, pads, row0, wrap, rows_dtype, table_dtype)
+                want = sa.scatter_add_plain(ids, rows, table.clone())
+                got = sa.scatter_add(ids, rows, table)
+                bits_same(torch, got, want, f"scatter_add {name} {tag}")
+                cases += 1
+            # a table one element off 16-byte alignment: the scalar path at d % 8 == 0
+            ids, rows, table = scatter_inputs(torch, np, rng, 64, 24, 30, 10, True, False, rows_dtype, table_dtype)
+            store = torch.empty(table.numel() + 1, dtype=table_dtype, device=DEVICE)
+            shifted = store[1:].view(table.shape)
+            shifted.copy_(table)
+            want = sa.scatter_add_plain(ids, rows, table.clone())
+            bits_same(torch, sa.scatter_add(ids, rows, shifted), want, f"scatter_add misaligned {tag}")
+            cases += 1
+            torch.cuda.synchronize()
+            log(f"[parity-scatter] {tag}: bit-identical")
+    # the embedding path's shape (what hier_flush hands to_dense)
+    v, d, k, live = SCATTER_PATH
+    ids = np.sort(rng.choice(v - 1, size=live, replace=False))
+    ids = torch.tensor(np.concatenate([ids, np.full(k - live, PAD)]).astype(np.int32), device=DEVICE)
+    rows = torch.randn((k, d), generator=torch.Generator(device=DEVICE).manual_seed(7), device=DEVICE)
+    rows[live:] = float("nan")
+    table = torch.zeros((v, d), device=DEVICE)
+    want = sa.scatter_add_plain(ids, rows, table.clone())
+    bits_same(torch, sa.scatter_add(ids, rows, table), want, "scatter_add path shape")
+    cases += 1
+    torch.cuda.synchronize()
+    log(f"[parity-scatter] {cases} cases bit-identical to the plain version, the path's shape "
+        f"[{k:,} slots, {live:,} live] into [{v:,}, {d}] among them")
+    return 0.0
+
+
+EMBED_ARCH = "granite_3_8b"
+EMBED_MICRO = 256  # microbatches a window: train_4k's batch of 256 on one device
+EMBED_SEQ = 4096  # one 4096-token sequence a microbatch
+EMBED_SEED = 0
+
+
+def accum_leaves(h):
+    out = []
+    for l in h.layers:
+        out += [l.ids, l.rows, l.nnz, l.overflow]
+    return out + [h.cascades]
+
+
+def phase_embed_grad(torch, np):
+    """The hierarchical embedding-gradient path at granite-3-8b's full
+    width: one optimizer window of 256 microbatches of 4096 tokens into the
+    row accumulator, the flush, the dense gradient through ``scatter_add``
+    and lazy AdamW on the bfloat16 table; through the kernel and again
+    inside ``plain_versions()``, bit-identical; against the dense baseline
+    ``index_add_``, summed in float64 (checked) and in float32 (reported)."""
+    from repro_torch import configs, kernels
+    from repro_torch.core.hierarchical import telescoped_caps
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sparse import hier_grad as HG
+    from repro_torch.sparse import row_accum as RA
+
+    cfg = configs.get_config(EMBED_ARCH)
+    vocab, rows_n, d = cfg.vocab, cfg.vocab_padded, cfg.d_model
+    hcfg = HG.HierGradConfig(top_capacity=min(rows_n, 1 << 16))  # train_lm.py's rule
+    opt = AdamWConfig()
+    t0 = time.perf_counter()
+    stream = TokenStream(vocab=vocab, batch=1, seq=EMBED_SEQ, zipf=1.3, seed=EMBED_SEED)
+    tokens = np.stack([stream.batch_at(s)["tokens"] for s in range(EMBED_MICRO)])
+    n_distinct = int(np.unique(tokens).size)
+    hottest = int(np.bincount(tokens.reshape(-1)).max())
+    ids = torch.tensor(tokens, device=DEVICE)  # [M, 1, S]
+    n_tok = EMBED_MICRO * EMBED_SEQ
+    caps = telescoped_caps(hcfg.cuts, hcfg.top_capacity, EMBED_SEQ)
+    log(f"[embed] {cfg.name}: V={vocab:,}, table rows {rows_n:,}, d={d}, table {cfg.dtype}; window "
+        f"{EMBED_MICRO} microbatches x {EMBED_SEQ} tokens = {n_tok:,} tokens, {n_distinct:,} distinct ids, "
+        f"the hottest {hottest:,} times "
+        f"(made and counted on the host in {time.perf_counter() - t0:.2f} s); cuts {hcfg.cuts}, "
+        f"top capacity {hcfg.top_capacity:,}, layer caps {caps} "
+        f"({[round(c * d * 4 / 1e9, 2) for c in caps]} GB of float32 rows); no reductions")
+    gen = torch.Generator(device=DEVICE)
+    table0 = (torch.randn((rows_n, d), generator=gen.manual_seed(EMBED_SEED + 2), device=DEVICE) * 0.02).to(torch.bfloat16)
+
+    # the plain run first, so that the kernel run, whose times are
+    # reported, finds the allocator warm
+    runs = {}
+    for mode in ("plain", "kernels"):
+        gen.manual_seed(EMBED_SEED + 1)
+        acc = HG.init_accumulator(hcfg, EMBED_SEQ, d, device=DEVICE)
+        baseline = torch.zeros((rows_n, d), device=DEVICE) if mode == "kernels" else None
+        exact = torch.zeros((rows_n, d), dtype=torch.float64, device=DEVICE) if mode == "kernels" else None
+        table, m, v = table0.clone(), torch.zeros((rows_n, d), device=DEVICE), torch.zeros((rows_n, d), device=DEVICE)
+        torch.cuda.synchronize()
+        zero_counts()
+        ctx = kernels.plain_versions() if mode == "plain" else contextlib.nullcontext()
+        acc_marks, base_marks = [], []
+        with ctx:
+            t_win = time.perf_counter()
+            for mb in range(EMBED_MICRO):
+                rows = torch.randn((1, EMBED_SEQ, d), generator=gen, device=DEVICE) * 0.01
+                e0, e1 = event(torch), event(torch)
+                e0.record()
+                acc = HG.accumulate_microbatch(acc, ids[mb], rows, hcfg)
+                e1.record()
+                acc_marks.append((e0, e1))
+                if baseline is not None:  # bench_embed_grad.py's dense baseline
+                    b0, b1 = event(torch), event(torch)
+                    b0.record()
+                    baseline.index_add_(0, ids[mb].reshape(-1), rows.reshape(-1, d))
+                    b1.record()
+                    base_marks.append((b0, b1))
+                    # the same sums in float64 (untimed): the reference the
+                    # gradient is checked against
+                    exact.index_add_(0, ids[mb].reshape(-1), rows.reshape(-1, d).double())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_win
+            e = [event(torch) for _ in range(4)]
+            e[0].record()
+            flushed = RA.hier_flush(acc)
+            e[1].record()
+            grad = HG.dense_grad_of(flushed, rows_n)
+            e[2].record()
+            table, m, v = HG.sparse_adamw_row_update(
+                flushed, table, m, v, torch.zeros((), dtype=torch.int32, device=DEVICE), opt
+            )
+            e[3].record()
+            torch.cuda.synchronize()
+        counts = read_counts()
+        acc_ms = sum(a.elapsed_time(b) for a, b in acc_marks)
+        runs[mode] = {
+            "acc": acc, "flushed": flushed, "grad": grad, "table": table, "m": m, "v": v,
+            "counts": counts, "acc_ms": acc_ms, "rate": n_tok / (acc_ms / 1e3), "wall": wall,
+            "flush_ms": e[0].elapsed_time(e[1]), "dense_ms": e[1].elapsed_time(e[2]),
+            "adamw_ms": e[2].elapsed_time(e[3]),
+            "base_ms": sum(a.elapsed_time(b) for a, b in base_marks), "baseline": baseline,
+            "exact": exact,
+        }
+        r = runs[mode]
+        log(f"[embed] {mode}: accumulate_microbatch {acc_ms:.1f} ms for the window = {r['rate']:,.0f} "
+            f"updates/s (CUDA events around each call; loop wall {wall:.3f} s with the row draws"
+            f"{' and the dense baseline' if baseline is not None else ''}); hier_flush "
+            f"{r['flush_ms']:.3f} ms, dense_grad_of (to_dense) {r['dense_ms']:.3f} ms, "
+            f"sparse_adamw_row_update {r['adamw_ms']:.3f} ms; launches {counts}")
+    k, p = runs["kernels"], runs["plain"]
+    check(k["counts"]["scatter_add"] == 1 and sum(k["counts"].values()) == 1, k["counts"])
+    check(sum(p["counts"].values()) == 0, ("plain_versions() launched a kernel", p["counts"]))
+    acc = k["acc"]
+    check(not bool(RA.hier_overflowed(acc)), "no layer of the accumulator overflowed")
+    casc = acc.cascades.tolist()
+    check(casc[1] > 0 and casc[2] == 0, ("layer 1 -> 2 fires, 2 -> 3 cannot", casc))
+    nnz = int(k["flushed"].nnz)
+    check(nnz == n_distinct, ("flushed nnz equals numpy's distinct count", nnz, n_distinct))
+    err = 0.0
+    for i, (a, b) in enumerate(zip(accum_leaves(acc), accum_leaves(p["acc"]))):
+        err = max(err, bits_same(torch, a, b, f"embed accumulator leaf {i}"))
+    for f in ("ids", "rows", "nnz", "overflow"):
+        err = max(err, bits_same(torch, getattr(k["flushed"], f), getattr(p["flushed"], f), f"embed flushed {f}"))
+    for f in ("grad", "table", "m", "v"):
+        err = max(err, bits_same(torch, k[f], p[f], f"embed {f}"))
+    # the dense baseline summed in float64, then the float32 one: a float32
+    # index_add_ folds the hottest id's rows (over a quarter of the window)
+    # one by one in the atomics' order, so its own rounding exceeds
+    # atol=1e-5 on small sums
+    exact = k["exact"]
+    grad64 = k["grad"].double()
+    close = torch.allclose(grad64, exact, rtol=1e-4, atol=1e-5)
+    base_err = float((grad64 - exact).abs().max())
+    check(close, ("dense_grad_of matches the float64 dense baseline at rtol=1e-4, atol=1e-5", base_err))
+    f32_err = float((k["baseline"].double() - exact).abs().max())
+    f32_vs_grad = float((k["grad"] - k["baseline"]).abs().max())
+    check(bool(torch.isfinite(k["table"]).all()), "finite table after the update")
+    touched = int((k["table"] != table0).any(dim=1).sum())
+    log(f"[embed] cascades per layer {casc} (layer 2 -> 3 cannot fire: {n_distinct:,} distinct ids "
+        f"< cut {hcfg.cuts[1]:,}); nnz per layer {[int(l.nnz) for l in acc.layers]}; flushed nnz "
+        f"{nnz:,} == numpy's distinct count; no overflow")
+    log(f"[embed] kernels == plain_versions() (bit-identical): accumulator, flushed rows, dense "
+        f"gradient, table, m, v; dense_grad_of vs the float64 index_add_ baseline: max abs diff "
+        f"{base_err:.3e} (checked at rtol=1e-4, atol=1e-5); the float32 index_add_ baseline vs "
+        f"float64 {f32_err:.3e}, vs dense_grad_of {f32_vs_grad:.3e} (reported); float32 baseline "
+        f"index_add_ {k['base_ms']:.1f} ms for the window; {touched:,} table rows changed by lazy AdamW")
+
+    # how far the accumulator's merges sit from their byte bound: the flush
+    # (two merges into the top layer) and one layer 1 -> 2 merge alone
+    layers = acc.layers
+    flush_bytes = 0
+    out = layers[-1]
+    for layer in reversed(layers[:-1]):
+        nxt = RA.merge(out, layer, cap=layers[-1].capacity)
+        flush_bytes += (int(out.nnz) + int(layer.nnz) + int(nxt.nnz)) * d * 4
+        out = nxt
+    # a layer 1 like the ones that cascaded: twelve microbatches' distinct ids
+    src = RA.from_pairs(ids[:12].reshape(-1), torch.randn((12 * EMBED_SEQ, d), generator=gen, device=DEVICE),
+                        layers[0].capacity)
+    check(not bool(src.overflow), "the stand-in layer 1 fits its capacity")
+    merged = RA.merge(layers[1], src, cap=layers[1].capacity)
+    merge_bytes = (int(layers[1].nnz) + int(src.nnz) + int(merged.nnz)) * d * 4
+    merge_ms = time_host(torch, np, lambda: RA.merge(layers[1], src, cap=layers[1].capacity), reps=3)
+    flush_bound = flush_bytes / HBM_BYTES_PER_S * 1e3
+    merge_bound = merge_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[embed] hier_flush {k['flush_ms']:.3f} ms vs its byte bound {flush_bound:.4f} ms "
+        f"({flush_bytes / 1e9:.3f} GB: live rows read and written); one layer 1 -> 2 merge "
+        f"({int(layers[1].nnz):,} + {int(src.nnz):,} -> {int(merged.nnz):,} rows) {merge_ms:.3f} ms "
+        f"(host clock, synchronized) vs its bound {merge_bound:.4f} ms")
+    return {
+        "err": err, "launches": k["counts"], "flushed": k["flushed"], "rows_n": rows_n,
+        "rate": k["rate"], "plain_rate": p["rate"], "acc_ms": k["acc_ms"], "flush_ms": k["flush_ms"],
+        "dense_ms": k["dense_ms"], "plain_dense_ms": p["dense_ms"], "adamw_ms": k["adamw_ms"],
+        "base_ms": k["base_ms"], "base_err": base_err, "f32_base_err": f32_err, "flush_bound_ms": flush_bound, "merge_ms": merge_ms,
+        "merge_bound_ms": merge_bound, "cascades": casc, "n_distinct": n_distinct,
+    }
+
+
+def phase_scatter_times(torch, np, embed):
+    """``scatter_add`` alone at the path's shape (the flushed accumulator
+    into a zero float32 [49,664, 4096] table): kernel, bound, plain version
+    and ``index_add_`` of the live prefix, the one PyTorch call that
+    computes the same function (timed as a yardstick only)."""
+    from repro_torch.kernels.scatter_add import ops as sa
+
+    fl = embed["flushed"]
+    ids, rows = fl.ids, fl.rows
+    n, k, d = int(fl.nnz), ids.shape[0], rows.shape[1]
+    table = torch.zeros((embed["rows_n"], d), device=DEVICE)
+    ms = time_kernel(torch, np, lambda: sa.scatter_add(ids, rows, table))
+    plain = time_host(torch, np, lambda: sa.scatter_add_plain(ids, rows, table), reps=3)
+    live_ids, live_rows = ids[:n].contiguous(), rows[:n].contiguous()
+    lib = time_kernel(torch, np, lambda: table.index_add_(0, live_ids, live_rows))
+    # each live row: table row read and written, gradient row read; the ids
+    # read once; row 0 read and written for the PAD slots' "+ 0.0" when no
+    # live id owns it
+    nbytes = n * d * 4 * 3 + k * 4 + (0 if int(ids[0]) == 0 else 2 * d * 4)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[times] scatter_add [{k:,} slots, {n:,} live] x {d} float32 into [{embed['rows_n']:,}, {d}]: "
+        f"{ms:.4f} ms, bound {bound:.5f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s), plain {plain:.3f} ms, "
+        f"index_add_ of the live prefix {lib:.4f} ms (yardstick only)")
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound, "bytes": nbytes}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -830,6 +1149,7 @@ def main() -> int:
     phase_build()
     parity_err = phase_parity(torch, np)
     ops_err = phase_parity_ops(torch, np)
+    scatter_err = phase_parity_scatter(torch, np)
     data = phase_data(torch, np)
     sess8, main_run = phase_main(torch, np, data)
     read = phase_read_side(torch, np, sess8, data)
@@ -839,9 +1159,20 @@ def main() -> int:
     del single_sess
     algebra = phase_algebra(torch, np)
     log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    # free the streaming phases' state before the embedding path
+    del data
+    main_run.pop("routed")
+    gc.collect()  # the sessions hold reference cycles
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[embed] device memory held before the phase {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    embed = phase_embed_grad(torch, np)
+    scatter_times = phase_scatter_times(torch, np, embed)
+    log(f"[embed] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     paths = {"cuda": main_run["launches"], "single": single["launches"], "read": read["launches"],
-             "algebra": algebra["launches"]}
+             "algebra": algebra["launches"], "embed_grad": embed["launches"]}
     err = max(ops_err, main_run["err"], read["err"], single["err"], algebra["err"])
 
     def launches(kernel):
@@ -902,9 +1233,25 @@ def main() -> int:
         "torch_sort_ms": {"[8, 100000]": sd8["torch_sort_ms"], "[100000]": sd1["torch_sort_ms"]},
         "fold_stage": {k: v for k, v in times.items() if k.startswith(("degrees fold", "one run"))},
         "parity": "bit-identical",
+    }, {
+        "name": "scatter_add",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/scatter_add.cu",
+        "replaces": "src/repro/kernels/scatter_add/kernel.py:45",
+        "launches": launches("scatter_add")[0],
+        "launches_by_path": launches("scatter_add")[1],
+        "max_abs_err": max(scatter_err, embed["err"]),
+        "ms": scatter_times["ms"],
+        "plain_ms": scatter_times["plain_ms"],
+        "bound_ms": scatter_times["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": scatter_times["library_ms"],
+        "bytes": scatter_times["bytes"],
+        "parity": "bit-identical",
     }]
     log(f"[rates] cuda engine K=8 {main_run['rate']:,.0f} updates/s; single engine K=1 "
-        f"{single['rate']:,.0f} updates/s")
+        f"{single['rate']:,.0f} updates/s; embedding window {embed['rate']:,.0f} updates/s "
+        f"(plain_versions() {embed['plain_rate']:,.0f})")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

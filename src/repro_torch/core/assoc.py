@@ -234,38 +234,52 @@ def from_triples_plain(
 # ---------------------------------------------------------------------------
 
 def _comb(lk, lv, rk, rv, sr: Semiring):
-    return rk, torch.where(lk == rk, sr.add(lv, rv), rv)
+    same = lk == rk
+    same = same.reshape(same.shape + (1,) * (lv.ndim - lk.ndim))  # over payload axes
+    return rk, torch.where(same, sr.add(lv, rv), rv)
 
 
-def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """JAX's ``_interleave``: ``a`` on even slots, ``b`` on odd ones, each
-    added to a zero pad (which turns float ``-0.0`` into ``+0.0``)."""
-    shape = a.shape[:-1] + (a.shape[-1] + b.shape[-1],)
+def _along(dim: int, s: slice):
+    """Index of ``s`` on axis ``dim``."""
+    return (slice(None),) * dim + (s,)
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """JAX's ``_interleave`` on axis ``dim``: ``a`` on even slots, ``b`` on
+    odd ones, each added to a zero pad (which turns float ``-0.0`` into
+    ``+0.0``)."""
+    shape = list(a.shape)
+    shape[dim] += b.shape[dim]
     out = torch.empty(shape, dtype=a.dtype, device=a.device)
     if a.is_floating_point():
         a, b = a + 0.0, b + 0.0
-    out[..., 0::2] = a
-    out[..., 1::2] = b
+    out[_along(dim, slice(0, None, 2))] = a
+    out[_along(dim, slice(1, None, 2))] = b
     return out
 
 
 def _scan(keys: torch.Tensor, vals: torch.Tensor, sr: Semiring):
     """Inclusive segmented ``sr.add`` scan over runs of equal ``keys``, in
-    exactly ``lax.associative_scan``'s order of operations."""
-    n = keys.shape[-1]
+    exactly ``lax.associative_scan``'s order of operations.  The scan runs
+    along the last axis of ``keys``; ``vals`` may carry trailing payload
+    axes after it (the row accumulator's ``[n, d]`` rows)."""
+    dim = keys.ndim - 1
+    n = keys.shape[dim]
     if n < 2:
         return keys, vals
-    rk, rv = _comb(
-        keys[..., 0:-1:2], vals[..., 0:-1:2], keys[..., 1::2], vals[..., 1::2], sr
-    )
+
+    def at(x, start, stop=None, step=None):
+        return x[_along(dim, slice(start, stop, step))]
+
+    rk, rv = _comb(at(keys, 0, -1, 2), at(vals, 0, -1, 2), at(keys, 1, None, 2), at(vals, 1, None, 2), sr)
     ok, ov = _scan(rk, rv, sr)
     if n % 2 == 0:
-        ek, ev = _comb(ok[..., :-1], ov[..., :-1], keys[..., 2::2], vals[..., 2::2], sr)
+        ek, ev = _comb(at(ok, 0, -1), at(ov, 0, -1), at(keys, 2, None, 2), at(vals, 2, None, 2), sr)
     else:
-        ek, ev = _comb(ok, ov, keys[..., 2::2], vals[..., 2::2], sr)
-    ek = torch.cat([keys[..., :1], ek], dim=-1)
-    ev = torch.cat([vals[..., :1], ev], dim=-1)
-    return _interleave(ek, ok), _interleave(ev, ov)
+        ek, ev = _comb(ok, ov, at(keys, 2, None, 2), at(vals, 2, None, 2), sr)
+    ek = torch.cat([at(keys, 0, 1), ek], dim=dim)
+    ev = torch.cat([at(vals, 0, 1), ev], dim=dim)
+    return _interleave(ek, ok, dim), _interleave(ev, ov, dim)
 
 
 def _combine_sorted(rows, cols, vals, cap: int, sr: Semiring) -> Assoc:

@@ -1,10 +1,15 @@
-"""Carry a hierarchy's state between the JAX reference and the port.
+"""Carry state between the JAX reference and the port.
 
 Numpy in, numpy out: the leaves of a reference ``HierAssoc`` (each
 ``Assoc`` field as ``np.asarray``, plus ``cascades``) become the port's
-:class:`~repro_torch.core.hierarchical.HierAssoc` and back, packed (leading
-``[K]`` axis) or not, power-of-two padded or not.  Arrays are copied, so the
-port owns its buffers (its kernel updates them in place).
+:class:`~repro_torch.core.hierarchical.HierAssoc` and back, packed
+(leading ``[K]`` axis) or not, power-of-two padded or not.  The sparse
+side's state has its converters in :mod:`repro_torch.sparse.convert`.
+
+Arrays are copied, so the port owns its buffers (its kernels update them
+in place).  bfloat16 arrays (numpy's ``ml_dtypes``
+type, as ``np.asarray`` of a JAX bfloat16 array gives them) travel by
+their bits.
 """
 from __future__ import annotations
 
@@ -18,6 +23,25 @@ from .assoc import Assoc
 from .hierarchical import HierAssoc
 
 
+def _own(x, device, dtype=None) -> torch.Tensor:
+    """An owned tensor copy of numpy ``x`` (bfloat16 by its bits)."""
+    x = np.array(x, copy=True)
+    if x.dtype.name == "bfloat16":
+        bits = torch.from_numpy(x.view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(x, dtype=dtype, device=device)
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    """An owned numpy copy of ``x`` (bfloat16 as ``ml_dtypes.bfloat16``)."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        import ml_dtypes  # the reference's bfloat16 type; only needed here
+
+        return x.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+    return x.numpy().copy()
+
+
 def hier_from_numpy(
     layers: Sequence[Tuple[np.ndarray, ...]],
     cascades: np.ndarray,
@@ -29,7 +53,7 @@ def hier_from_numpy(
     device = resolve_device(device)
 
     def own(x, dtype=None):
-        return torch.tensor(np.array(x, copy=True), dtype=dtype, device=device)
+        return _own(x, device, dtype)
 
     return HierAssoc(
         layers=tuple(
@@ -50,7 +74,7 @@ def hier_to_numpy(h: HierAssoc):
     """``(layers, cascades)`` as numpy arrays, the inverse of
     :func:`hier_from_numpy`."""
     layers = [
-        tuple(x.detach().cpu().numpy().copy() for x in (l.rows, l.cols, l.vals, l.nnz, l.overflow))
+        tuple(_np(x) for x in (l.rows, l.cols, l.vals, l.nnz, l.overflow))
         for l in h.layers
     ]
-    return layers, h.cascades.detach().cpu().numpy().copy()
+    return layers, _np(h.cascades)

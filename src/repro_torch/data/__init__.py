@@ -1,2 +1,2 @@
 """Synthetic data streams of the port."""
-from . import rmat  # noqa: F401
+from . import rmat, tokens  # noqa: F401

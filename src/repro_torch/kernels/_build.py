@@ -26,6 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 KERNELS = {
     "hier_cascade": "hier_cascade.cu",
     "merge_add": "merge_add.cu",
+    "scatter_add": "scatter_add.cu",
     "sort_dedup": "sort_dedup.cu",
 }
 

@@ -1,6 +1,7 @@
 """Helpers shared by the port's parity tests (``test_torch_*.py``): the same
 numpy inputs go through the JAX reference and ``repro_torch``, and the
 results are compared bit-exactly."""
+import ml_dtypes
 import numpy as np
 import torch
 
@@ -48,9 +49,24 @@ def seeded_layers(seed, k, caps, fill, space, zero):
 
 
 def np_of(x):
+    """numpy of a tensor or array; bfloat16 as ``ml_dtypes.bfloat16``."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return x.numpy()
     return np.asarray(x)
+
+
+def to_torch(x, dtype=None):
+    """A tensor copy of numpy ``x``; ``dtype=torch.bfloat16`` rounds the
+    values to bfloat16 as numpy's ``ml_dtypes`` does (so both packages get
+    the same bits)."""
+    x = np.asarray(x)
+    if dtype == torch.bfloat16 or x.dtype == ml_dtypes.bfloat16:
+        bits = x.astype(ml_dtypes.bfloat16).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.tensor(x, dtype=dtype)
 
 
 def assert_same(got, want, what=""):
@@ -60,7 +76,24 @@ def assert_same(got, want, what=""):
     assert g.dtype == w.dtype, (what, g.dtype, w.dtype)
     if g.dtype == np.float32:
         g, w = g.view(np.int32), w.view(np.int32)
+    elif g.dtype == ml_dtypes.bfloat16:
+        g, w = g.view(np.int16), w.view(np.int16)
     np.testing.assert_array_equal(g, w, err_msg=str(what))
+
+
+def assert_same_but_nan_bits(got, want, what=""):
+    """:func:`assert_same` where the NaN bit patterns may differ: NaN in the
+    same places, every other value bit for bit.  For bfloat16 on the CPU,
+    where PyTorch's vectorized float32 -> bfloat16 rounding writes NaN as
+    ``0xFFFF`` and its scalar one (and XLA's) as ``0x7FC0``."""
+    g, w = np_of(got), np_of(want)
+    assert g.shape == w.shape and g.dtype == w.dtype, (what, g.shape, w.shape, g.dtype, w.dtype)
+    gn, wn = np.isnan(g.astype(np.float32)), np.isnan(w.astype(np.float32))
+    np.testing.assert_array_equal(gn, wn, err_msg=f"{what}: NaN positions")
+    bits = np.int16 if g.dtype == ml_dtypes.bfloat16 else np.int32
+    np.testing.assert_array_equal(
+        np.where(gn, 0, g.view(bits)), np.where(wn, 0, w.view(bits)), err_msg=str(what)
+    )
 
 
 def assert_assoc_same(got, want, what=""):
