@@ -10,13 +10,16 @@ Phases, each of which asserts (any failure exits non-zero):
 1. build every kernel from the sources in the checkout (``nvcc``, sm_90a,
    one process per source, all started together);
 2. hold the ``hier_cascade`` kernel against its plain PyTorch version on the
-   card, bit-exactly, at the CPU parity tests' shapes and at a mid shape
-   where both cuts fire, for every semiring fold code, and with NaN and
-   -0.0 in the batches and in entries the layers already hold;
+   card, bit-exactly, in float32 and bfloat16, at the CPU parity tests'
+   shapes, at a mid shape where both cuts fire, on merges of over a million
+   entries, with a top layer truncating at its cap, with an equal-key pair
+   across every merge-path tile edge, for every semiring fold code, and
+   with NaN and -0.0 in the batches and in entries the layers already hold;
 3. hold ``merge_add`` and ``sort_dedup`` against their plain versions, bit
    for bit: every fold code, float32 and bfloat16, NaN and -0.0, leading
-   batch axes, caps below the union, empty inputs, one huge run, ~1 M
-   entries; and ``scatter_add``: float32 and bfloat16 tables and rows, PAD
+   batch axes, caps below the union, empty inputs, one huge run, up to 5 M
+   entries, a pair across every tile edge; and ``scatter_add``: float32 and
+   bfloat16 tables and rows, PAD
    tails, NaN and -0.0 with row 0 live or dead (C10), negative and
    out-of-range ids, k = 0, d of 1, 3 and 4096, a misaligned table, and the
    embedding path's own shape;
@@ -26,8 +29,11 @@ Phases, each of which asserts (any failure exits non-zero):
    paper's instance shape (cuts 100k/1M/10M, top capacity 16,000,000
    each) through ``D4MStream(cfg).ingest``, 200 ``sort_dedup`` calls and
    200 ``hier_cascade`` launches; replay the same routed batches through
-   the kernel alone (timed on the card, the wrapper's host time apart) and
-   through the plain versions, and require all three states bit-identical;
+   the kernel alone (timed on the card by step kind, the wrapper's host
+   time apart, each call under ``torch.cuda.set_sync_debug_mode("error")``)
+   and through the plain versions, and require all three states
+   bit-identical; then 120 groups in bfloat16 through the kernels and
+   inside ``kernels.plain_versions()``, bit-identical;
 6. the read side: the K=8 snapshot and ``query.degrees`` through the
    kernels and inside ``kernels.plain_versions()``, bit-identical, checked
    against numpy's distinct count and ``bincount``;
@@ -35,8 +41,10 @@ Phases, each of which asserts (any failure exits non-zero):
    at full width, through the kernels and inside ``plain_versions()``,
    bit-identical, every cascade level firing;
 8. per-call times of ``sort_dedup`` and ``merge_add`` at the main paths'
-   shapes, with their byte bounds, plain versions and ``torch.sort`` of
-   the same keys as a reference;
+   shapes (``merge_add``: the layer-1 merge, the snapshot merges and the
+   ``single`` engine's last 1->2, 2->3 and 3->4 cascade merges), with
+   their byte bounds (dead-tail bytes apart), plain versions and
+   ``torch.sort`` of the same keys as a reference;
 9. the algebra and graph queries on a uniform random graph (2^16
    vertices, 500,000 edges, ``max_fanout`` 64), kernels against plain bit
    for bit, triangles against scipy's ``trace(A^3)/6``;
@@ -76,6 +84,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 ENTRY_BYTES = 12  # int32 row + int32 col + float32 value
 STEPS = 200
+BF16_STEPS = 120  # the bfloat16 ingest: layer 1 -> 2 fires in every instance
+BOUNDARY_PAIRS = 1 << 20  # entries paired across every tile edge (boundary_case)
 K = 8
 TOP_CAPACITY = 16_000_000
 DEVICE = "cuda"
@@ -173,28 +183,40 @@ def plant_special(torch, h):
 
 
 def phase_parity(torch, np):
-    """Kernel against plain version on the card, bit-exactly."""
+    """Kernel against plain version on the card, bit-exactly: float32 and
+    bfloat16, every fold code, NaN and -0.0, merges that span many
+    partitions (layers of over a million entries), a merge that truncates
+    at the top layer's cap, steps where no cut fires, and equal-key pairs on
+    every partition boundary (:func:`boundary_case`)."""
     from repro_torch.core import semiring
     from repro_torch.kernels.hier_cascade import ops
 
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [
-        # (name, K, cuts, top, batch, steps, key space, semiring)
-        ("absent-K1", 1, (512,), 2048, 8, 5, 48, "plus.times"),
-        ("absent-K8", 8, (512,), 2048, 8, 5, 48, "plus.times"),
-        ("forced-K1", 1, (8, 32), 256, 16, 6, 48, "plus.times"),
-        ("forced-K8", 8, (8, 32), 256, 16, 6, 48, "plus.times"),
-        ("overflow", 2, (8,), 12, 16, 6, 256, "plus.times"),
-        ("max.plus", 2, (8, 32), 256, 16, 5, 48, "max.plus"),
-        ("min.plus", 2, (8, 32), 256, 16, 5, 48, "min.plus"),
-        ("union.first", 2, (8, 32), 256, 16, 5, 48, "union.first"),
+        # (name, K, cuts, top, batch, steps, key space, semiring, value type)
+        ("absent-K1", 1, (512,), 2048, 8, 5, 48, "plus.times", f32),
+        ("absent-K8", 8, (512,), 2048, 8, 5, 48, "plus.times", f32),
+        ("forced-K1", 1, (8, 32), 256, 16, 6, 48, "plus.times", f32),
+        ("forced-K8", 8, (8, 32), 256, 16, 6, 48, "plus.times", f32),
+        ("overflow", 2, (8,), 12, 16, 6, 256, "plus.times", f32),
+        ("max.plus", 2, (8, 32), 256, 16, 5, 48, "max.plus", f32),
+        ("min.plus", 2, (8, 32), 256, 16, 5, 48, "min.plus", f32),
+        ("union.first", 2, (8, 32), 256, 16, 5, 48, "union.first", f32),
+        # merges of 1-2 M entries (hundreds of partitions), cascading into
+        # the top layer; a top layer that truncates at its cap
+        ("big-plus.times", 8, (131072, 1048576), 4_000_000, 65536, 32, 2048, "plus.times", f32),
+        ("big-nan-min.plus-bf16", 8, (131072, 1048576), 4_000_000, 65536, 32, 2048, "min.plus", bf16),
+        ("trunc-big", 4, (65536,), 150_000, 65536, 8, 4096, "plus.times", f32),
+        ("trunc-big-bf16", 4, (65536,), 150_000, 65536, 8, 4096, "max.plus", bf16),
     ]
-    for srn in ("plus.times", "max.plus", "min.plus", "union.first"):
-        cases.append((f"mid-{srn}", 8, (4096, 32768), 262144, 4096, 64, 1024, srn))
-    for srn in ("plus.times", "max.plus", "min.plus", "union.first"):
-        cases.append((f"nan-{srn}", 8, (8, 32), 256, 16, 8, 48, srn))
-        cases.append((f"mid-nan-{srn}", 8, (4096, 32768), 262144, 4096, 24, 1024, srn))
+    for srn in FOLDS:
+        for dt in (f32, bf16):
+            tag = "" if dt == f32 else "-bf16"
+            cases.append((f"mid-{srn}{tag}", 8, (4096, 32768), 262144, 4096, 64, 1024, srn, dt))
+            cases.append((f"nan-{srn}{tag}", 8, (8, 32), 256, 16, 8, 48, srn, dt))
+            cases.append((f"mid-nan-{srn}{tag}", 8, (4096, 32768), 262144, 4096, 24, 1024, srn, dt))
     err = 0.0
-    for name, k, cuts, top, batch, steps, space, srn in cases:
+    for name, k, cuts, top, batch, steps, space, srn, dt in cases:
         sr = semiring.get(srn)
         rng = np.random.default_rng(len(name) * 7919 + steps)
         special = "nan" in name
@@ -204,8 +226,9 @@ def phase_parity(torch, np):
             V = special_values(torch, np, rng, (steps, k, batch))
         else:
             V = torch.tensor(rng.normal(size=(steps, k, batch)), dtype=torch.float32, device=DEVICE)
-        hk, caps = ops.init_state(k, cuts, top, batch, sr, device=DEVICE)
-        hp, _ = ops.init_state(k, cuts, top, batch, sr, device=DEVICE)
+        V = V.to(dt)
+        hk, caps = ops.init_state(k, cuts, top, batch, sr, dt, device=DEVICE)
+        hp, _ = ops.init_state(k, cuts, top, batch, sr, dt, device=DEVICE)
         for t in range(steps):
             hk = ops.cascade_update(hk, R[t], C[t], V[t], cuts, caps, sr)
             hp = plain_update(hp, R[t], C[t], V[t], cuts, caps, sr)
@@ -215,14 +238,64 @@ def phase_parity(torch, np):
         torch.cuda.synchronize()
         err = max(err, compare(torch, hk, hp, name))
         casc = hk.cascades.cpu()
-        if name.startswith("mid"):
+        if name.startswith(("mid", "big")):
             check((casc[:, 1] > 0).all(), (name, casc))
-        if name.startswith("mid-") and not special:
             check(int(casc[:, 2].sum()) > 0, (name, casc))
+        if name.startswith("trunc"):
+            check(bool(hk.layers[-1].overflow.all()), (name, "the top layer truncated at its cap"))
         if special:
             n_nan = sum(int(l.vals.isnan().sum()) for l in hk.layers)
             check(n_nan > 0, (name, "NaN survives in the layers"))
-        log(f"[parity] {name}: bit-identical, cascades per layer {casc.sum(0).tolist()}")
+        log(f"[parity] {name}: bit-identical, cascades per layer {casc.sum(0).tolist()}, "
+            f"nnz per layer (instance 0) {[int(l.nnz[0]) for l in hk.layers]}")
+    for srn in FOLDS:
+        for dt in (f32, bf16):
+            err = max(err, boundary_case(torch, np, srn, dt))
+    return err
+
+
+def boundary_case(torch, np, srn, dtype):
+    """One step whose two merges pair every entry, with an equal-key pair
+    straddling every merge-path partition boundary: layer 1 holds keys
+    {1} + S, the batch S, layer 2 {0, 1} + S (S = 2 .. n+1), so in either
+    merge's dst-first order the pairs sit at odd/even positions that every
+    even diagonal splits.  Layer 1's cut fires into layer 2."""
+    from repro_torch.core import semiring
+    from repro_torch.kernels.hier_cascade import ops
+
+    sr, n = semiring.get(srn), BOUNDARY_PAIRS
+    k, cuts, top = 2, (n // 2, 4 * n), n
+    rng = np.random.default_rng(n + len(srn))
+
+    def keys(idx):
+        idx = torch.tensor(idx, dtype=torch.int64, device=DEVICE)
+        return (idx // 4096).to(torch.int32), (idx % 4096).to(torch.int32)
+
+    s = np.arange(2, n + 2)
+    presets = {0: np.concatenate([[1], s]), 1: np.concatenate([[0, 1], s])}
+    states = []
+    for _ in range(2):
+        h, caps = ops.init_state(k, cuts, top, n, sr, dtype, device=DEVICE)
+        states.append(h)
+    for i, idx in presets.items():
+        r, c = keys(idx)
+        v = special_values(torch, np, rng, (k, idx.size)).to(dtype)
+        for h in states:
+            l = h.layers[i]
+            l.rows[:, : idx.size], l.cols[:, : idx.size], l.vals[:, : idx.size] = r, c, v
+            l.nnz.fill_(idx.size)
+    r, c = keys(s)
+    R, C = r.expand(k, n).contiguous(), c.expand(k, n).contiguous()
+    V = special_values(torch, np, rng, (k, n)).to(dtype)
+    hk = ops.cascade_update(states[0], R, C, V, cuts, caps, sr)
+    hp = plain_update(states[1], R, C, V, cuts, caps, sr)
+    torch.cuda.synchronize()
+    err = compare(torch, hk, hp, f"boundary {srn} {dtype}")
+    casc = hk.cascades.cpu()
+    check(bool((casc[:, 1] == 1).all()) and [int(x) for x in hk.layers[1].nnz] == [n + 2] * k,
+          ("boundary: layer 1 fired into layer 2, every entry paired", casc, hk.layers[1].nnz))
+    log(f"[parity] boundary {srn}/{str(dtype)[6:]}: {n + 1:,} + {n:,} and {n + 2:,} + {n + 1:,} "
+        f"entries, a pair across every partition boundary: bit-identical")
     return err
 
 
@@ -338,6 +411,8 @@ def phase_parity_ops(torch, np):
                     ("disjoint-width", (), 1000, 30, 100, 500),
                     ("mid", (), 1_000_000, 300_000, 2048, None),
                     ("mid-cap", (2,), 500_000, 500_000, 1024, 600_000),
+                    ("big", (), 3_000_000, 2_000_000, 4096, None),
+                    ("big-cap", (2,), 1_500_000, 1_500_000, 2048, 1_000_000),
                 ):
                     ra, ca, va = random_triples(torch, np, rng, batch + (m,), space, special, dtype)
                     rb, cb, vb = random_triples(torch, np, rng, batch + (n,), space, special, dtype)
@@ -348,6 +423,13 @@ def phase_parity_ops(torch, np):
                     got = mops.merge_add(a, b, cap, sr)
                     want = assoc.add_plain(a, b, cap, sr)
                     err = max(err, assoc_same(torch, got, want, f"merge_add {name} {tag}"))
+                    cases += 1
+                # an equal-key pair across every merge-path tile edge
+                for batch, cap in (((), None), ((2,), None), ((), 1_500_000)):
+                    a, b = paired_assocs(torch, np, rng, 1_000_000, batch, special, dtype, sr)
+                    got = mops.merge_add(a, b, cap, sr)
+                    want = assoc.add_plain(a, b, cap, sr)
+                    err = max(err, assoc_same(torch, got, want, f"merge_add pairs {batch} {cap} {tag}"))
                     cases += 1
                 for wa, wb in ((0, 5), (5, 0), (0, 0), (1, 0), (1, 1)):  # empty inputs
                     a, b = (
@@ -366,6 +448,32 @@ def phase_parity_ops(torch, np):
     return err
 
 
+def paired_assocs(torch, np, rng, n, batch, special, dtype, sr):
+    """``a`` with keys {1} + S, ``b`` with S (S = 2 .. n+1, key index x as
+    (x // 4096, x % 4096)), each on the card with the given leading axes:
+    every entry of ``b`` pairs with one of ``a``, at odd/even positions of
+    the merged order, so every edge of an even merge-path tile cuts a pair."""
+    from repro_torch.core.assoc import Assoc
+
+    def make(idx):
+        idx = torch.tensor(idx, dtype=torch.int64, device=DEVICE).expand(batch + (idx.size,))
+        shape = idx.shape
+        if special:
+            v = special_values(torch, np, rng, shape)
+        else:
+            v = torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=DEVICE)
+        return Assoc(
+            rows=(idx // 4096).to(torch.int32).contiguous(),
+            cols=(idx % 4096).to(torch.int32).contiguous(),
+            vals=v.to(dtype),
+            nnz=torch.full(batch, shape[-1], dtype=torch.int32, device=DEVICE),
+            overflow=torch.zeros(batch, dtype=torch.bool, device=DEVICE),
+        )
+
+    s = np.arange(2, n + 2)
+    return make(np.concatenate([[1], s])), make(s)
+
+
 def counters():
     """The launch counters of the four kernels' wrappers."""
     from repro_torch.kernels.hier_cascade import ops as hc
@@ -379,10 +487,19 @@ def counters():
 def zero_counts() -> None:
     for mod in counters().values():
         mod.launch_count = 0
+        if hasattr(mod, "cuda_launch_count"):
+            mod.cuda_launch_count = 0
 
 
 def read_counts() -> dict:
     return {name: mod.launch_count for name, mod in counters().items()}
+
+
+def cuda_launches_per_call(name: str) -> float:
+    """CUDA kernel launches a wrapper call of ``name`` made since the counts
+    were zeroed, as its CUDA entry counted them."""
+    mod = counters()[name]
+    return mod.cuda_launch_count / max(mod.launch_count, 1)
 
 
 def event(torch):
@@ -436,6 +553,7 @@ def phase_main(torch, np, data):
     from repro_torch.configs.d4m_stream import CONFIG
     from repro_torch.core import assoc, multistream
     from repro_torch.d4m import D4MStream
+    from repro_torch.kernels import _launch
     from repro_torch.kernels.hier_cascade import ops
 
     R, C, V, n_edges = data["R"], data["C"], data["V"], data["n_edges"]
@@ -459,9 +577,10 @@ def phase_main(torch, np, data):
     wall = time.perf_counter() - t0
     launches = read_counts()
     check(launches == {"hier_cascade": STEPS, "sort_dedup": STEPS, "merge_add": 0, "scatter_add": 0}, launches)
+    cuda_per_call = cuda_launches_per_call("hier_cascade")
     rate = n_edges / wall
     log(f"[main] ingest: {STEPS} groups in {wall:.3f} s = {rate:,.0f} updates/s, "
-        f"launches {launches}")
+        f"launches {launches}; hier_cascade made {cuda_per_call:g} CUDA launches a call")
     check(int(dropped) == 0, int(dropped))
     check(not sess.overflowed(), "no instance overflowed")
     casc = sess.state.cascades.cpu()
@@ -490,64 +609,46 @@ def phase_main(torch, np, data):
         h = multistream.init_packed(K, cuts, cfg.top_capacity, cfg.batch_size, sr, device=DEVICE)
         return multistream.flat_layer_state(h)
 
-    # each launch waits behind a spin of the card: the wrapper's host work
-    # (checks, scratch, ctypes arguments) runs meanwhile, so the events time
-    # the kernel alone; the host time is taken apart, on the host clock
-    s0, s1 = event(torch), event(torch)
-    s0.record()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    s1.record()
-    torch.cuda.synchronize()
-    sleep_ms = s0.elapsed_time(s1)
-    flat_k = fresh()
-    kernel_ms, host_ms = [], []
-    for b in batches:
-        flat_k[3][:, 0] |= b.overflow
-        start, end = event(torch), event(torch)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        t0 = time.perf_counter()
-        ops.cascade_step_kernel(*flat_k, b, cuts, caps, sr)
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        kernel_ms.append((start, end))
-    torch.cuda.synchronize()
-    kernel_ms = [s.elapsed_time(e) for s, e in kernel_ms]
-    overruns = sum(h >= sleep_ms for h in host_ms)
-    log(f"[main] wrapper host time {np.mean(host_ms):.4f} ms/launch mean "
-        f"(max {max(host_ms):.4f}); spin ahead of each launch {sleep_ms:.3f} ms; "
-        f"{overruns} launches where the host outlasted the spin")
+    flat_k, kernel_ms, host_ms, casc_after, scratch = kernel_replay(
+        torch, np, batches, fresh(), cuts, caps, sr)
 
     # the plain version: batches canonicalized by from_triples_plain (held
     # bit-identical to sort_dedup's), then the plain step, timed alone
     flat_p = fresh()
-    merges, plain_ms = [], []
+    merges, plain_ms, step_bytes = [], [], []
     for (br, bc, bv), b in zip(routed, batches):
         pb = assoc.from_triples_plain(br, bc, bv, cap=br.shape[-1], sr=sr)
         err_b = assoc_same(torch, b, pb, "canonical batch: sort_dedup vs plain")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        n0 = len(merges)
         flat_p = plain_step(flat_p, pb, cuts, caps, sr, merges)
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
+        step_bytes.append(merge_bytes(merges[n0:]) + K * 3 * plan.n_layers * 4)
 
     err = max(err_b, compare(torch, multistream.from_flat_layer_state(*flat_k), sess.state, "replay vs main path"))
     err = max(err, compare(torch, multistream.from_flat_layer_state(*flat_p), sess.state, "plain vs kernel"))
     log("[main] main-path state == kernel replay == plain version (bit-identical)")
 
-    # least bytes a step must move: every merge reads its two live inputs and
-    # writes its live output; a fired cascade also clears its source
-    step_bytes = sum(
-        ENTRY_BYTES * (n_dst + n_src + n_out + (n_src if cleared else 0))
-        for n_dst, n_src, n_out, cleared in merges
-    ) / STEPS + K * 3 * plan.n_layers * 4
-    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = float(np.mean(step_bytes)) / HBM_BYTES_PER_S * 1e3
     ms = float(np.mean(kernel_ms))
     log(f"[main] hier_cascade: {ms:.4f} ms/step mean (median {np.median(kernel_ms):.4f}, "
         f"max {max(kernel_ms):.4f}); bound {bound_ms:.5f} ms/step "
-        f"({step_bytes / 1e6:.2f} MB/step at 3.35 TB/s); plain version "
+        f"({np.mean(step_bytes) / 1e6:.2f} MB/step at 3.35 TB/s); plain version "
         f"{np.mean(plain_ms):.3f} ms/step (the step alone)")
+    kinds = step_kinds(torch, np, casc_after, kernel_ms, step_bytes)
+    for kind, row in kinds.items():
+        log(f"[main] hier_cascade {kind} steps: {row['steps']}, {row['ms']:.4f} ms mean "
+            f"(median {row['median_ms']:.4f}), bound {row['bound_ms']:.5f} ms")
+    tiles = sum(t.nbytes for pair in _launch._merge_scratch.values() for t in pair)
+    log(f"[main] hier_cascade scratch kept with a state {scratch / 1e9:.3f} GB (allocator delta "
+        f"of its first call), merge tile scratch kept per stream {tiles / 1e6:.3f} MB; state "
+        f"{plan.total_bytes / 1e9:.3f} GB")
     return sess, {
+        "kinds": kinds,
+        "cuda_launches_per_call": cuda_per_call,
+        "scratch_bytes": scratch,
         "launches": launches,
         "err": err,
         "ms": ms,
@@ -558,6 +659,127 @@ def phase_main(torch, np, data):
         "canon_ms": canon_ms,
         "routed": routed[0],
     }
+
+
+def kernel_replay(torch, np, batches, flat, cuts, caps, sr):
+    """``cascade_step_kernel`` over canonical ``batches`` from the flat
+    state ``flat`` (updated in place), each launch behind a spin of the
+    card so the wrapper's host work overlaps it and the events time the
+    kernel alone; the host time is taken apart, on the host clock, with
+    the card's queue emptied before each call (a full launch queue would
+    make the host wait).  Each call runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync in the
+    wrapper raises.  One untimed call on a copy of the state first warms
+    the allocator (the scratch).  Returns the state, the kernel and host ms
+    of each call, the cascade counters after each call, and the device
+    memory that first call kept (the allocator's delta: the scratch the
+    wrapper keeps for a state)."""
+    from repro_torch.kernels.hier_cascade import ops
+
+    warm = [tuple(t.clone() for t in layer) for layer in flat[0]], *(t.clone() for t in flat[1:])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    ops.cascade_step_kernel(*warm, batches[0], cuts, caps, sr)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.memory_allocated() - held
+    del warm
+    s0, s1 = event(torch), event(torch)
+    s0.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    s1.record()
+    torch.cuda.synchronize()
+    sleep_ms = s0.elapsed_time(s1)
+    marks, host_ms, casc_after = [], [], []
+    for b in batches:
+        flat[3][:, 0] |= b.overflow
+        torch.cuda.synchronize()
+        start, end = event(torch), event(torch)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            ops.cascade_step_kernel(*flat, b, cuts, caps, sr)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        end.record()
+        marks.append((start, end))
+        casc_after.append(flat[2].clone())
+    torch.cuda.synchronize()
+    kernel_ms = [s.elapsed_time(e) for s, e in marks]
+    overruns = sum(h >= sleep_ms for h in host_ms)
+    log(f"[replay] {len(batches)} wrapper calls under torch.cuda.set_sync_debug_mode('error'): no "
+        f"host sync; wrapper host time {np.mean(host_ms):.4f} ms/call mean (max {max(host_ms):.4f}); "
+        f"spin ahead of each launch {sleep_ms:.3f} ms; {overruns} calls where the host outlasted the spin")
+    return flat, kernel_ms, host_ms, casc_after, scratch
+
+
+def merge_bytes(merges) -> int:
+    """Least bytes of ``cascade_step_plain``'s merges: each reads its two
+    live inputs and writes its live output; a fired cascade also clears its
+    source."""
+    return sum(
+        ENTRY_BYTES * (n_dst + n_src + n_out + (n_src if cleared else 0))
+        for n_dst, n_src, n_out, cleared in merges
+    )
+
+
+def step_kinds(torch, np, casc_after, times_ms, step_bytes=None):
+    """Steps grouped by the highest cascade that fired in any instance (read
+    from the cascade counters after each step): ``layer 1 only``, ``1->2``,
+    ``2->3``, ...; per kind the step count, mean and median ms and, given
+    each step's bytes, the mean bound."""
+    casc = torch.stack(casc_after).cpu().numpy()
+    fired = np.diff(casc, axis=0, prepend=np.zeros_like(casc[:1])) > 0  # [steps, K, L]
+    level = np.where(fired.any(axis=1), np.arange(casc.shape[-1]), 0).max(axis=1)
+    out = {}
+    for lv in sorted(set(level.tolist())):
+        pick = level == lv
+        t = np.asarray(times_ms)[pick]
+        row = {"steps": int(pick.sum()), "ms": float(t.mean()), "median_ms": float(np.median(t))}
+        if step_bytes is not None:
+            row["bound_ms"] = float(np.asarray(step_bytes)[pick].mean()) / HBM_BYTES_PER_S * 1e3
+        out["layer 1 only" if lv == 0 else f"{lv}->{lv + 1}"] = row
+    return out
+
+
+def phase_bf16_ingest(torch, np, data):
+    """A short bfloat16 ingest of the ``cuda`` engine (K=8, full width):
+    through the kernels, then inside ``plain_versions()``, bit-identical."""
+    from repro_torch import kernels
+    from repro_torch.configs.d4m_stream import CONFIG
+    from repro_torch.d4m import D4MStream
+
+    R, C, V, steps = data["R"], data["C"], data["V"], BF16_STEPS
+    cfg = CONFIG.to_session(instances_per_device=K, top_capacity=TOP_CAPACITY, dtype="bfloat16")
+    states = {}
+    for mode in ("kernels", "plain"):
+        sess = D4MStream(cfg)
+        check(sess.kind == "cuda" and sess.dtype == torch.bfloat16, (sess.kind, sess.dtype))
+        sess.state
+        torch.cuda.synchronize()
+        zero_counts()
+        ctx = kernels.plain_versions() if mode == "plain" else contextlib.nullcontext()
+        with ctx:
+            t0 = time.perf_counter()
+            for g in range(steps):
+                sess.ingest(R[g], C[g], V[g])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        states[mode] = sess.state
+        log(f"[bf16] {mode}: {steps} groups in {wall:.3f} s, launches {counts}")
+        if mode == "kernels":
+            check(counts["hier_cascade"] == steps and counts["sort_dedup"] == steps, counts)
+        else:
+            check(sum(counts.values()) == 0, ("plain_versions() launched a kernel", counts))
+    err = compare(torch, states["kernels"], states["plain"], "bfloat16 cuda engine: kernels vs plain")
+    casc = states["kernels"].cascades.cpu()
+    check(bool((casc[:, 1] > 0).all()), ("layer 1 -> 2 fired in every instance", casc))
+    log(f"[bf16] K=8 bfloat16 ingest through hier_cascade == plain_versions() (bit-identical); "
+        f"cascades per layer {casc.sum(0).tolist()}")
+    return err
 
 
 def phase_read_side(torch, np, sess, data):
@@ -621,19 +843,20 @@ def phase_single(torch, np, data):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         counts = read_counts()
-        runs[mode] = (sess, wall, counts)
+        runs[mode] = (sess, wall, counts, cuda_launches_per_call("merge_add"))
         log(f"[single] {mode}: {STEPS} groups in {wall:.3f} s = {n_edges / wall:,.0f} updates/s, "
             f"launches {counts}")
         if mode == "kernels":
             plan = sess.plan
             log(f"[single] caps {plan.layer_caps}, state {plan.total_bytes / 1e9:.2f} GB planned")
-    sess, wall, counts = runs["kernels"]
+    sess, wall, counts, merge_cuda = runs["kernels"]
     check(counts["sort_dedup"] >= STEPS and counts["merge_add"] >= STEPS
           and counts["hier_cascade"] == 0, counts)
     check(sum(runs["plain"][2].values()) == 0, ("plain_versions() launched a kernel", runs["plain"][2]))
     casc = sess.state.cascades.cpu()
     check(bool((casc[1:] > 0).all()), ("every cascade level fired", casc))
     check(not sess.overflowed(), "the single instance did not overflow")
+    log(f"[single] merge_add made {merge_cuda:g} CUDA launches a call")
     log(f"[single] cascades per layer {casc.tolist()}, nnz per layer "
         f"{[int(l.nnz) for l in sess.state.layers]}")
     err = compare(torch, sess.state, runs["plain"][0].state, "single: kernels vs plain")
@@ -648,7 +871,8 @@ def phase_single(torch, np, data):
     read_ms = (time.perf_counter() - t0) * 1e3
     check_reads(torch, np, snap, top, data, "single")
     log(f"[single] snapshot + degrees + top_k {read_ms:.2f} ms, launches {read_counts()}")
-    return sess, {"err": err, "rate": n_edges / wall, "launches": counts}
+    return sess, {"err": err, "rate": n_edges / wall, "launches": counts,
+                  "cuda_launches_per_call": merge_cuda}
 
 
 def phase_algebra(torch, np, n_v=2**16, n_e=500_000, fanout=64):
@@ -805,9 +1029,31 @@ def phase_kernel_times(torch, np, data, main, single):
                       "bytes": nbytes}
         log(f"[times] sort_dedup fold stage, {name}: {ms:.4f} ms, bound "
             f"{rows[name]['bound_ms']:.5f} ms, plain {plain:.3f} ms")
-    # merge_add: the single engine's layer-1 merge (layer 1 holding one
-    # batch, a second batch into it), and the snapshot's merges (the top
-    # layer + layer 3, then + 2, + 1)
+    for name, (a, b, cap) in merge_add_cases(torch, data, single).items():
+        out = mops.merge_add(a, b, cap, sr)
+        n_out = int(out.nnz)
+        nbytes = ENTRY_BYTES * (int(a.nnz) + int(b.nnz) + n_out)
+        tail = ENTRY_BYTES * (cap - n_out)  # fill_tail's PAD rows, apart
+        ms = time_kernel(torch, np, lambda: mops.merge_add(a, b, cap, sr), reps=5)
+        plain = time_host(torch, np, lambda: assoc.add_plain(a, b, cap, sr), reps=3)
+        rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "bytes": nbytes, "tail_bytes": tail,
+                      "tail_bound_ms": tail / HBM_BYTES_PER_S * 1e3}
+        log(f"[times] merge_add {name} ({int(a.nnz):,} + {int(b.nnz):,} -> {n_out:,}, cap {cap:,}): "
+            f"{ms:.4f} ms, bound {rows[name]['bound_ms']:.5f} ms live + "
+            f"{rows[name]['tail_bound_ms']:.5f} ms dead tail ({tail / 1e9:.3f} GB), plain {plain:.3f} ms")
+    return rows
+
+
+def merge_add_cases(torch, data, single):
+    """``{name: (a, b, cap)}``: ``merge_add``'s inputs on the main paths.
+    The ``single`` engine's layer-1 merge (layer 1 holding one batch, a
+    second batch into it), the snapshot's merges of the full-width
+    ``single`` state (the top layer + layer 3, then + 2, + 1), and the last
+    cascade merge of each level (:func:`cascade_merges`)."""
+    from repro_torch.core import assoc
+
+    sr = single.sr
     layers = single.state.layers
     b0, b1 = (assoc.from_triples(data["R"][g], data["C"][g], data["V"][g], data["R"].shape[1], sr)
               for g in (0, 1))
@@ -817,16 +1063,39 @@ def phase_kernel_times(torch, np, data, main, single):
     for i in range(len(layers) - 2, -1, -1):  # hierarchical.snapshot's order
         cases[f"snapshot merge +layer {i + 1}"] = (snap, layers[i], data["n_distinct"])
         snap = assoc.add(snap, layers[i], cap=data["n_distinct"], sr=sr)
-    for name, (a, b, cap) in cases.items():
-        out = mops.merge_add(a, b, cap, sr)
-        nbytes = ENTRY_BYTES * (int(a.nnz) + int(b.nnz) + int(out.nnz))
-        ms = time_kernel(torch, np, lambda: mops.merge_add(a, b, cap, sr), reps=5)
-        plain = time_host(torch, np, lambda: assoc.add_plain(a, b, cap, sr), reps=3)
-        rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                      "bytes": nbytes}
-        log(f"[times] merge_add {name} ({int(a.nnz):,} + {int(b.nnz):,} -> {int(out.nnz):,}): "
-            f"{ms:.4f} ms, bound {rows[name]['bound_ms']:.5f} ms, plain {plain:.3f} ms")
-    return rows
+    cases.update(cascade_merges(torch, data))
+    return cases
+
+
+def cascade_merges(torch, data):
+    """``{name: (dst, src, cap)}``: the inputs of the last merge of each
+    cascade level of the ``single`` engine's full-width run (1->2, 2->3,
+    3->4), caught by a stand-in ``assoc.add`` on a fresh run of the same
+    stream (the engine keeps no reference to them)."""
+    from repro_torch.configs.d4m_stream import CONFIG
+    from repro_torch.core import assoc
+    from repro_torch.d4m import D4MStream
+
+    sess = D4MStream(CONFIG.to_session(snapshot_cap=data["n_distinct"]))
+    caps = sess.plan.layer_caps
+    last = {}
+    add = assoc.add
+
+    def catch(a, b, cap=None, sr=None):
+        if b.capacity in caps[:-1] and a.capacity == caps[caps.index(b.capacity) + 1]:
+            i = caps.index(b.capacity) + 1
+            last[f"cascade merge {i}->{i + 1}"] = (a, b, cap)
+        return add(a, b, cap, sr)
+
+    assoc.add = catch
+    try:
+        for g in range(STEPS):
+            sess.ingest(data["R"][g], data["C"][g], data["V"][g])
+    finally:
+        assoc.add = add
+    torch.cuda.synchronize()
+    check(len(last) == len(caps) - 1, ("every cascade level fired", sorted(last)))
+    return dict(sorted(last.items()))
 
 
 # granite-3-8b's table rows and width, the flushed accumulator's slots
@@ -1152,6 +1421,7 @@ def main() -> int:
     scatter_err = phase_parity_scatter(torch, np)
     data = phase_data(torch, np)
     sess8, main_run = phase_main(torch, np, data)
+    bf16_err = phase_bf16_ingest(torch, np, data)
     read = phase_read_side(torch, np, sess8, data)
     del sess8
     single_sess, single = phase_single(torch, np, data)
@@ -1189,13 +1459,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/hier_cascade/kernel.py:168",
         "launches": launches("hier_cascade")[0],
         "launches_by_path": launches("hier_cascade")[1],
-        "max_abs_err": max(parity_err, main_run["err"]),
+        "max_abs_err": max(parity_err, main_run["err"], bf16_err),
         "ms": main_run["ms"],
         "plain_ms": main_run["plain_ms"],
         "bound_ms": main_run["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
         "host_ms": main_run["host_ms"],
+        "by_step_kind": main_run["kinds"],
+        "cuda_launches_per_call": main_run["cuda_launches_per_call"],
+        "scratch_bytes": main_run["scratch_bytes"],
         "parity": "bit-identical",
     }, {
         "name": "merge_add",
@@ -1213,6 +1486,9 @@ def main() -> int:
         "ms_snapshot_merges": {k: v["ms"] for k, v in snaps.items()},
         "plain_ms_snapshot_merges": {k: v["plain_ms"] for k, v in snaps.items()},
         "bound_ms_snapshot_merges": {k: v["bound_ms"] for k, v in snaps.items()},
+        "cascade_merges": {k: v for k, v in times.items() if k.startswith("cascade merge")},
+        "tail_bytes": {k: v["tail_bytes"] for k, v in times.items() if "tail_bytes" in v},
+        "cuda_launches_per_call": single["cuda_launches_per_call"],
         "parity": "bit-identical",
     }, {
         "name": "sort_dedup",

@@ -84,11 +84,14 @@ template <typename T>
 inline cudaError_t launch_fill_tail(int32_t* rows, int32_t* cols, T* vals,
                                     const int32_t* nnz, int64_t groups,
                                     int64_t cap, uint32_t zero_bits,
-                                    cudaStream_t stream) {
+                                    cudaStream_t stream,
+                                    int* launches = nullptr) {
   if (groups * cap == 0) return cudaSuccess;
   fill_tail<T><<<flat_blocks(groups * cap), kFlatThreads, 0, stream>>>(
       rows, cols, vals, nnz, groups, cap, zero_bits);
-  return cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && launches != nullptr) ++*launches;
+  return err;
 }
 
 }  // namespace d4m

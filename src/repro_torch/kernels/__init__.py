@@ -6,7 +6,8 @@ the plain PyTorch version for CPU tensors) and a launch counter.
 
 :func:`plain_versions` scopes a switch that the dispatchers read (the
 three of :mod:`repro_torch.core.assoc`, ``add``, ``from_triples`` and
-``_combine_sorted``, and :func:`repro_torch.sparse.row_accum.to_dense`):
+``_combine_sorted``, :func:`repro_torch.kernels.hier_cascade.ops.cascade_step`
+and :func:`repro_torch.sparse.row_accum.to_dense`):
 inside it they take their plain PyTorch versions for CUDA tensors too, so a
 whole path can be held against its plain version on the card.  Only the chip smoke test and tests enter it; outside it a CUDA
 tensor launches the kernel or raises.
@@ -26,9 +27,9 @@ def plain_active() -> bool:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route ``assoc.add``/``from_triples``/``_combine_sorted`` and
-    ``row_accum.to_dense`` to their plain PyTorch versions on every device
-    while the block runs."""
+    """Route ``assoc.add``/``from_triples``/``_combine_sorted``,
+    ``cascade_step`` and ``row_accum.to_dense`` to their plain PyTorch
+    versions on every device while the block runs."""
     token = _plain.set(True)
     try:
         yield

@@ -2,7 +2,7 @@
 
 The reference's bitonic networks are TPU-specific (oblivious compare-
 exchange passes over VMEM lanes) and are not carried over: the Hopper
-kernels merge by rank (``csrc/merge.cuh``).
+kernels merge by merge-path partitions (``csrc/merge.cuh``).
 """
 from __future__ import annotations
 

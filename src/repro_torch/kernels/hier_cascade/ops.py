@@ -11,9 +11,12 @@ row stride), so the port keeps the true capacities.
 The kernel (``repro_torch/csrc/hier_cascade.cu``) replaces the TPU kernel
 ``repro/kernels/hier_cascade/kernel.py:168`` (``hier_cascade_pallas``).  It
 is bound by the bytes it moves: on a step without cascades, the live prefix
-of layer 1 and the batch's live entries, read and written back.  It moves
-only live prefixes, merges in place, and skips each upper layer whose cut
-does not fire (see the note at the top of the source).
+of layer 1 and the batch's live entries, read and written back.  Each merge
+of a step runs over the whole card in merge-path tiles x K instances, out of
+place into a scratch of the widest layer (kept with the state), copied
+back; the lane skip is decided on the card, so a call makes no host sync
+(see the note at the top of the source).  It takes float32 and bfloat16 values; other types
+raise ``NotImplementedError``.
 
 The wrapper dispatches on where the tensors lie: on the CPU it runs
 :func:`cascade_step_plain`, the plain PyTorch version of the same step; on
@@ -32,6 +35,7 @@ import ctypes
 from typing import Sequence, Tuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core import assoc, multistream
 from repro_torch.core.assoc import PAD, Assoc
@@ -40,10 +44,17 @@ from repro_torch.core.semiring import PLUS_TIMES, Semiring
 
 from repro_torch.device import resolve_device
 
-from .. import _build
+from .. import _build, _launch, plain_active
 
 #: kernel launches so far (the chip smoke test zeroes it around a run)
 launch_count = 0
+#: CUDA kernel launches those calls made, as the CUDA entry counts them
+cuda_launch_count = 0
+
+#: layer-1 rows buffer of a state -> its merged-layer scratch (rows, cols,
+#: vals ``[K, max cap]``) and merge records ``[K, 2]``: kept while the
+#: state lives, so a call allocates nothing
+_scratch = WeakIdKeyDictionary()
 
 MAX_LAYERS = 8
 
@@ -103,12 +114,13 @@ def cascade_step_plain(
 def _lib():
     lib = _build.load("hier_cascade")
     if lib.hier_cascade_step.argtypes is None:
-        vp, i64 = ctypes.c_void_p, ctypes.c_int64
+        vp, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.hier_cascade_step.argtypes = [
-            ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, i64,
+            c_int, c_int, c_int, vp, vp, vp, vp, i64,
             ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp),
             ctypes.POINTER(i64), ctypes.POINTER(i64), ctypes.POINTER(i64),
-            vp, vp, vp, vp, i64, i64, ctypes.c_int, ctypes.c_float, vp,
+            vp, vp, vp, vp, vp, vp, i64, vp, vp, vp, vp, vp, i64,
+            c_int, ctypes.c_uint32, c_int, ctypes.POINTER(c_int), vp,
         ]
         lib.hier_cascade_step.restype = ctypes.c_int
         lib.hier_cascade_error_string.argtypes = [ctypes.c_int]
@@ -116,17 +128,43 @@ def _lib():
     return lib
 
 
+def _tiles(caps: Sequence[int], batch_width: int) -> int:
+    """Tiles per instance of the widest merge of a step."""
+    srcs = [batch_width] + list(caps[:-1])
+    return max(_launch.merge_tiles(cap + src) for cap, src in zip(caps, srcs))
+
+
+def _state_scratch(rows0: torch.Tensor, k: int, width: int, dt: torch.dtype):
+    """The merged-layer scratch and merge records of the state whose layer-1
+    rows buffer is ``rows0`` (made on its first call)."""
+    s = _scratch.get(rows0)
+    if s is None or s[0].shape != (k, width) or s[2].dtype != dt:
+        dev = rows0.device
+        s = (
+            torch.empty((k, width), dtype=torch.int32, device=dev),
+            torch.empty((k, width), dtype=torch.int32, device=dev),
+            torch.empty((k, width), dtype=dt, device=dev),
+            torch.empty((k, 2), dtype=torch.int64, device=dev),
+        )
+        _scratch[rows0] = s
+    return s
+
+
 def cascade_step_kernel(bufs, nnz, cascades, overflow, batch: Assoc, cuts, caps, sr):
-    """Launch the CUDA kernel on the flat state (updated in place)."""
-    global launch_count
+    """Launch the CUDA kernel on the flat state (updated in place).  Reads
+    nothing back from the card and, after the state's first call,
+    allocates nothing."""
+    global launch_count, cuda_launch_count
     k, n_layers = nnz.shape
-    dev = nnz.device
     planes = [nnz, cascades, overflow, batch.rows, batch.cols, batch.vals, batch.nnz]
     planes += [t for layer in bufs for t in layer]
-    if any(t.device != dev or not t.is_contiguous() for t in planes):
-        raise ValueError("hier_cascade needs contiguous tensors on one CUDA device")
-    if any(t.dtype != torch.float32 for t in [batch.vals] + [v for _, _, v in bufs]):
-        raise NotImplementedError("the hier_cascade kernel takes float32 values only")
+    dev = _launch.check_cuda("hier_cascade", *planes)
+    if not all(t.is_contiguous() for t in planes):
+        raise ValueError("hier_cascade needs contiguous tensors")
+    dt = batch.vals.dtype
+    code = _launch.dtype_code(batch.vals, "hier_cascade")
+    if any(v.dtype != dt for _, _, v in bufs):
+        raise ValueError("the batch and every layer need one value type")
     keys = [batch.rows, batch.cols, batch.nnz, nnz, cascades]
     keys += [t for r, c, _ in bufs for t in (r, c)]
     if any(t.dtype != torch.int32 for t in keys) or overflow.dtype != torch.bool:
@@ -136,8 +174,11 @@ def cascade_step_kernel(bufs, nnz, cascades, overflow, batch: Assoc, cuts, caps,
     if not 1 <= n_layers <= MAX_LAYERS or max(caps) >= 2**31:
         raise ValueError(f"hier_cascade takes 1..{MAX_LAYERS} layers of cap < 2**31")
     lib = _lib()
-    half = max([batch.rows.shape[1]] + list(caps[:-1])) + 1
-    scratch = torch.empty((k, 2 * half), dtype=torch.int32, device=dev)
+    b_width = batch.rows.shape[1]
+    width, tiles = max(caps), _tiles(caps, b_width)
+    out_rows, out_cols, out_vals, rec = _state_scratch(bufs[0][0], k, width, dt)
+    splits, counts, offsets, done = _launch.merge_scratch(dev, k, tiles)
+    launches = ctypes.c_int(0)
 
     def ptrs(ts):
         return (ctypes.c_void_p * n_layers)(*[t.data_ptr() for t in ts])
@@ -147,19 +188,20 @@ def cascade_step_kernel(bufs, nnz, cascades, overflow, batch: Assoc, cuts, caps,
         return (ctypes.c_int64 * len(xs))(*[int(x) for x in xs])
 
     err = lib.hier_cascade_step(
-        k, n_layers,
+        code, k, n_layers,
         batch.rows.data_ptr(), batch.cols.data_ptr(), batch.vals.data_ptr(),
-        batch.nnz.data_ptr(), batch.rows.shape[1],
+        batch.nnz.data_ptr(), b_width,
         ptrs([r for r, _, _ in bufs]), ptrs([c for _, c, _ in bufs]),
         ptrs([v for _, _, v in bufs]),
         ints(r.shape[1] for r, _, _ in bufs), ints(caps), ints(cuts),
         nnz.data_ptr(), cascades.data_ptr(), overflow.data_ptr(),
-        scratch.data_ptr(), 2 * half, half, sr.fold, sr.zero,
-        torch.cuda.current_stream(dev).cuda_stream,
+        out_rows.data_ptr(), out_cols.data_ptr(), out_vals.data_ptr(), width,
+        splits, counts, offsets, rec.data_ptr(), done, tiles, sr.fold,
+        _launch.zero_bits(sr.zero, dt), _launch.sm_count(_launch.index(dev)),
+        ctypes.byref(launches), _launch.stream(dev),
     )
-    if err != 0:
-        msg = lib.hier_cascade_error_string(err).decode()
-        raise RuntimeError(f"hier_cascade launch failed: CUDA error {err} ({msg})")
+    cuda_launch_count += launches.value
+    _launch.raise_on(err, lib, "hier_cascade", "hier_cascade")
     launch_count += 1
 
 
@@ -170,15 +212,16 @@ def cascade_step(
     caps: Sequence[int],
     sr: Semiring = PLUS_TIMES,
 ) -> HierAssoc:
-    """One step on a canonical ``[K]``-leading batch.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    """One step on a canonical ``[K]``-leading batch.  CPU tensors, and
+    CUDA tensors inside ``kernels.plain_versions()``, take the plain
+    version; other CUDA tensors launch the kernel."""
     cuts = tuple(int(c) for c in cuts)
     caps = tuple(int(c) for c in caps)
     _check_layout(h, caps)
     bufs, nnz, cascades, overflow = multistream.flat_layer_state(h)
     # a malformed batch surfaces on layer 1 exactly as assoc.add would
     overflow[:, 0] |= batch.overflow
-    if nnz.device.type == "cpu":
+    if nnz.device.type == "cpu" or plain_active():
         cascade_step_plain(bufs, nnz, cascades, overflow, batch, cuts, caps, sr)
     elif nnz.device.type == "cuda":
         cascade_step_kernel(bufs, nnz, cascades, overflow, batch, cuts, caps, sr)

@@ -10,9 +10,10 @@ The kernel (``repro_torch/csrc/merge_add.cu``) replaces the TPU kernel
 bound by the bytes it moves: each live input entry read once and each
 output entry written once (12 B an entry in float32, 10 B in bfloat16).
 It reads only the live prefixes and spreads one merge over the whole card
-in five launches: binary searches place every entry by rank, and a scan of
-the keys both inputs share closes the gaps (see the note at the top of the
-source).  It takes leading batch axes (one group per batch index),
+in merge-path tiles (``csrc/merge.cuh``): one warp search per tile edge, a
+merge of each tile in shared memory, a scan of the tiles' survivor counts
+for their output offsets, and the fill of the dead tail; three launches
+(see the note at the top of the source).  It takes leading batch axes (one group per batch index),
 float32 and bfloat16 values; other types raise ``NotImplementedError``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
@@ -31,6 +32,8 @@ from .. import _build, _launch
 
 #: wrapper calls that launched the kernel (the chip smoke test zeroes it)
 launch_count = 0
+#: CUDA kernel launches those calls made, as the CUDA entry counts them
+cuda_launch_count = 0
 
 
 def _lib():
@@ -39,7 +42,8 @@ def _lib():
         vp, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.merge_add_run.argtypes = (
             [ctypes.c_int, i64] + [vp] * 5 + [i64] + [vp] * 5 + [i64] + [vp] * 5
-            + [i64] + [vp] * 5 + [ctypes.c_int, ctypes.c_uint32, vp]
+            + [i64] + [vp] * 4 + [i64, ctypes.c_int, ctypes.c_uint32, ctypes.c_int]
+            + [ctypes.POINTER(ctypes.c_int), vp]
         )
         lib.merge_add_run.restype = ctypes.c_int
         lib.merge_add_error_string.argtypes = [ctypes.c_int]
@@ -57,7 +61,7 @@ def merge_add(a: Assoc, b: Assoc, cap: int | None = None, sr: Semiring = PLUS_TI
 
 def merge_add_kernel(a: Assoc, b: Assoc, cap: int | None, sr: Semiring) -> Assoc:
     """Launch the CUDA kernel (inputs must hold the Assoc invariant)."""
-    global launch_count
+    global launch_count, cuda_launch_count
     m, n = a.capacity, b.capacity
     cap = m + n if cap is None else int(cap)
     batch = a.rows.shape[:-1]
@@ -73,8 +77,8 @@ def merge_add_kernel(a: Assoc, b: Assoc, cap: int | None, sr: Semiring) -> Assoc
     g = 1
     for d in batch:
         g *= int(d)
-    if max(m, n, cap) > _launch.INT32_LIMIT or g * max(n, 1) > _launch.INT32_LIMIT:
-        raise ValueError("merge_add takes widths and group sizes below 2**31")
+    if max(m, n, cap) > _launch.INT32_LIMIT:
+        raise ValueError("merge_add takes widths below 2**31")
     dt = a.vals.dtype
     out = Assoc(
         rows=torch.empty(batch + (cap,), dtype=torch.int32, device=dev),
@@ -90,21 +94,21 @@ def merge_add_kernel(a: Assoc, b: Assoc, cap: int | None, sr: Semiring) -> Assoc
     br, bc, bv = (_launch.flat(x, g, n, t) for x, t in ((b.rows, i32), (b.cols, i32), (b.vals, dt)))
     a_nnz, b_nnz = (x.to(i32).reshape(g).contiguous() for x in (a.nnz, b.nnz))
     a_ov, b_ov = (x.to(torch.bool).reshape(g).contiguous() for x in (a.overflow, b.overflow))
-    tiles = g * _launch.n_tiles(n)
-    scratch = torch.empty(2 * g * n + 2 * tiles + 1 + g, dtype=i32, device=dev)
-    code_b, dupb, counts, off, dups = torch.split(
-        scratch, [g * n, g * n, tiles, tiles + 1, g]
-    )
+    tiles = _launch.merge_tiles(m + n)
+    splits, counts, offsets, done = _launch.merge_scratch(dev, g, tiles)
     lib = _lib()
+    launches = ctypes.c_int(0)
     err = lib.merge_add_run(
         code, g,
         ar.data_ptr(), ac.data_ptr(), av.data_ptr(), a_nnz.data_ptr(), a_ov.data_ptr(), m,
         br.data_ptr(), bc.data_ptr(), bv.data_ptr(), b_nnz.data_ptr(), b_ov.data_ptr(), n,
         out.rows.data_ptr(), out.cols.data_ptr(), out.vals.data_ptr(),
         out.nnz.data_ptr(), out.overflow.data_ptr(), cap,
-        code_b.data_ptr(), dupb.data_ptr(), counts.data_ptr(), off.data_ptr(), dups.data_ptr(),
-        sr.fold, _launch.zero_bits(sr.zero, dt), _launch.stream(dev),
+        splits, counts, offsets, done, tiles,
+        sr.fold, _launch.zero_bits(sr.zero, dt), _launch.sm_count(_launch.index(dev)),
+        ctypes.byref(launches), _launch.stream(dev),
     )
+    cuda_launch_count += launches.value
     _launch.raise_on(err, lib, "merge_add", "merge_add")
     launch_count += 1
     return out

@@ -101,16 +101,19 @@ def assert_assoc_same(got, want, what=""):
         assert_same(getattr(got, f), getattr(want, f), f"{what}.{f}")
 
 
-def assert_hier_same(got, want, what=""):
+def assert_hier_same(got, want, what="", same_vals=assert_same):
     """Port hierarchy vs reference hierarchy, layer by layer.  One side's
     layer may be wider (the reference's Pallas engine pads to powers of
-    two): the common prefix must be identical and the wider tail dead."""
+    two): the common prefix must be identical and the wider tail dead.
+    ``same_vals`` compares the values (:func:`assert_same_but_nan_bits` for
+    bfloat16 on the CPU)."""
     assert len(got.layers) == len(want.layers)
     for i, (g, w) in enumerate(zip(got.layers, want.layers)):
         cap = min(np_of(g.rows).shape[-1], np_of(w.rows).shape[-1])
         for f in ("rows", "cols", "vals"):
             gv, wv = np_of(getattr(g, f)), np_of(getattr(w, f))
-            assert_same(gv[..., :cap], wv[..., :cap], f"{what}.layer{i}.{f}")
+            check = same_vals if f == "vals" else assert_same
+            check(gv[..., :cap], wv[..., :cap], f"{what}.layer{i}.{f}")
         for x in (g, w):
             tail = np_of(x.rows)[..., cap:]
             assert (tail == PAD).all(), f"{what}.layer{i} tail not dead"

@@ -26,7 +26,14 @@ from repro_torch.core import semiring as ts
 from repro_torch.kernels import _build
 from repro_torch.kernels.hier_cascade import ops as tops
 
-from _torch_parity import assert_hier_same, seeded_layers, special_values, stream
+from _torch_parity import (
+    assert_hier_same,
+    assert_same_but_nan_bits,
+    seeded_layers,
+    special_values,
+    stream,
+    to_torch,
+)
 
 torch.set_num_threads(1)
 
@@ -144,6 +151,33 @@ def test_parity_against_pallas_kernel_interpret():
     assert_hier_same(got, h, "pallas")
 
 
+@pytest.mark.parametrize("srn", ["plus.times", "max.plus"])
+def test_bfloat16_against_pallas_kernel_interpret(srn):
+    """bfloat16 values, NaN and -0.0 in the batches: the port's step (its
+    plain version on the CPU) against the reference's Pallas kernel in
+    interpret mode.  bfloat16 NaNs compare as NaN (PyTorch's vectorized CPU
+    rounding writes 0xFFFF where XLA writes 0x7FC0); every other bit,
+    -0.0 turned +0.0 included, exactly."""
+    cuts, top, batch, k = (8, 32), 256, 16, 2
+    R, C, _ = stream(4, (4, k, batch), SPACE)
+    V = special_values(np.random.default_rng(11), R.shape)
+    sr_j = js.get(srn)
+    h, caps = jops.init_state(k, cuts, top, batch, sr_j, dtype=jnp.bfloat16)
+    step = jops.build_step(cuts, caps, sr_j, donate=False, interpret=True)
+    for t in range(R.shape[0]):
+        h = step(h, jnp.asarray(R[t]), jnp.asarray(C[t]), jnp.asarray(V[t], jnp.bfloat16))
+    sr = ts.get(srn)
+    got, caps_t = tops.init_state(k, cuts, top, batch, sr, torch.bfloat16, device="cpu")
+    for t in range(R.shape[0]):
+        got = tops.cascade_update(
+            got, torch.tensor(R[t]), torch.tensor(C[t]), to_torch(V[t], torch.bfloat16), cuts, caps_t, sr
+        )
+    assert got.layers[0].vals.dtype == torch.bfloat16
+    assert_hier_same(got, h, "pallas-bf16", same_vals=assert_same_but_nan_bits)
+    vals = torch.cat([l.vals.flatten().float() for l in got.layers])
+    assert bool(vals.isnan().any()) and int(got.cascades[:, 1].sum()) > 0
+
+
 def test_batch_overflow_flag_lands_on_layer_one():
     """A flagged batch raises layer 1's overflow (the reference ORs the
     batch flag in before the step)."""
@@ -168,6 +202,19 @@ def test_kernel_rejects_unpadded_state():
     narrow = tm.init_packed(2, (8,), top_capacity=90, batch_size=8, device="cpu")
     with pytest.raises(ValueError, match="cannot hold its cap"):
         tops.cascade_update(narrow, r, r, torch.ones((2, 8)), (8,), caps)
+
+
+def test_kernel_refuses_cpu_tensors():
+    """The launch path takes CUDA tensors only: CPU tensors raise before any
+    launch (``cascade_step`` sends them to the plain version instead)."""
+    sr = ts.PLUS_TIMES
+    h, caps = tops.init_state(2, (8,), 64, 8, sr, torch.bfloat16, device="cpu")
+    r = torch.zeros((2, 8), dtype=torch.int32)
+    batch = tops.canonical_batch(r, r, torch.ones((2, 8), dtype=torch.bfloat16), sr)
+    before = tops.launch_count
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tops.cascade_step_kernel(*tm.flat_layer_state(h), batch, (8,), caps, sr)
+    assert tops.launch_count == before
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -229,11 +276,29 @@ def test_kernel_matches_plain_on_card():
     sr = ts.PLUS_TIMES
     cuts, top, batch, k = (8, 32), 256, 16, 8
     R, C, V = stream(6, (6, k, batch), SPACE)
-    hk, caps = tops.init_state(k, cuts, top, batch, sr, device="cuda")
-    hp, _ = tops.init_state(k, cuts, top, batch, sr, device="cuda")
-    for t in range(R.shape[0]):
-        args = [torch.tensor(x[t], device="cuda") for x in (R, C, V)]
-        hk = tops.cascade_update(hk, *args, cuts, caps, sr)
-        hp = _plain_update(hp, *args, cuts, caps, sr)
-    torch.cuda.synchronize()
-    assert_hier_same(hk, hp, "kernel")
+    for dt in (torch.float32, torch.bfloat16):
+        hk, caps = tops.init_state(k, cuts, top, batch, sr, dt, device="cuda")
+        hp, _ = tops.init_state(k, cuts, top, batch, sr, dt, device="cuda")
+        for t in range(R.shape[0]):
+            r, c = (torch.tensor(x[t], device="cuda") for x in (R, C))
+            v = torch.tensor(V[t], device="cuda").to(dt)
+            hk = tops.cascade_update(hk, r, c, v, cuts, caps, sr)
+            hp = _plain_update(hp, r, c, v, cuts, caps, sr)
+        torch.cuda.synchronize()
+        assert_hier_same(hk, hp, f"kernel {dt}")
+
+
+def test_step_scratch_lives_with_its_state():
+    """The kernel's merged-layer scratch is kept per state (keyed by its
+    layer-1 rows buffer), remade when the shape or value type changes, and
+    freed with the state."""
+    h, caps = tops.init_state(2, (8,), 64, 8, ts.PLUS_TIMES, device="cpu")
+    rows0 = h.layers[0].rows
+    s = tops._state_scratch(rows0, 2, max(caps), torch.float32)
+    assert [tuple(t.shape) for t in s] == [(2, max(caps))] * 3 + [(2, 2)]
+    assert tops._state_scratch(rows0, 2, max(caps), torch.float32) is s
+    b = tops._state_scratch(rows0, 2, max(caps), torch.bfloat16)
+    assert b is not s and b[2].dtype == torch.bfloat16
+    n = len(tops._scratch)
+    del h, rows0
+    assert len(tops._scratch) == n - 1

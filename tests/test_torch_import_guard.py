@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the reference package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``chip_compare.py`` import neither ``jax`` nor the reference package
+``repro``."""
 import os
 import re
 import subprocess
@@ -44,7 +45,7 @@ def test_every_module_imports_without_jax():
 
 
 def test_no_source_names_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
     assert len(files) > 15
     for f in files:
         src = f.read_text()

@@ -199,3 +199,26 @@ def test_kernel_matches_plain_on_card():
 
         for cap in (None, 100):
             assert_assoc_same(cpu(tops.merge_add(a, b, cap, sr)), cpu(tas.add_plain(a, b, cap, sr)), (srn, cap))
+
+
+def test_merge_scratch_is_kept_and_grown(monkeypatch):
+    """The merge kernels' tile scratch: one per device and stream, kept
+    between calls, grown when a merge needs more; its finish counters are
+    zeroed when made (the count pass leaves them zero), and the regions
+    (offsets, splits, counts) follow one another without overlap."""
+    monkeypatch.setattr(_launch, "_merge_scratch", {})
+    monkeypatch.setattr(_launch, "index", lambda dev: 0)
+    monkeypatch.setattr(_launch, "stream", lambda dev: 7)
+    cpu = torch.device("cpu")
+    splits, counts, offsets, done = _launch.merge_scratch(cpu, 3, 5)
+    assert (splits - offsets, counts - splits) == (8 * 3 * 5, 8 * 3 * 6)
+    work, zeros = _launch._merge_scratch[(0, 7)]
+    assert work.numel() * 4 >= counts - offsets + 4 * 3 * 5 and zeros.tolist() == [0, 0, 0]
+    assert done == zeros.data_ptr() and offsets == work.data_ptr()
+    assert _launch.merge_scratch(cpu, 2, 4)[3] == done  # smaller: the same scratch
+    _launch.merge_scratch(cpu, 4, 40)
+    work, zeros = _launch._merge_scratch[(0, 7)]
+    assert work.numel() == 2 * 160 + 2 * 164 + 160 and zeros.tolist() == [0] * 4
+    monkeypatch.setattr(_launch, "stream", lambda dev: 8)
+    _launch.merge_scratch(cpu, 1, 1)
+    assert len(_launch._merge_scratch) == 2  # one per stream
