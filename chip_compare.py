@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's ``hier_cascade`` and ``merge_add`` kernels of one source
-tree at the main paths' shapes, so that two commits can be compared in one
-call on the card (the host of a chip machine varies between calls).
+"""Time the port's ``hier_cascade``, ``merge_add`` and ``sort_dedup`` kernels
+of one source tree at the main paths' shapes, so that two commits can be
+compared in one call on the card (the host of a chip machine varies between
+calls).
 
     mkdir -p archive/parent && git archive <commit> | tar -x -C archive/parent
     for t in archive/parent . . archive/parent; do python3 chip_compare.py --src $t; done
@@ -16,7 +17,13 @@ that tree's own build directory) and the measurement helpers from
   (the highest cascade that fired, read from the cascade counters);
 * ``merge_add``: the ``single`` engine's ingest rate at full width, and the
   kernel alone on its layer-1 merge, the snapshot merges of its state and
-  the last cascade merge of each level.
+  the last cascade merge of each level;
+* ``sort_dedup``: the kernel alone on a routed ``cuda`` engine batch
+  ``[8, 100000]`` and a ``single`` engine batch ``[100000]``
+  (``from_triples``, and ``combine_sorted`` on the same batches sorted),
+  the degrees' fold stage on the ``single`` state's snapshot and one run as
+  long as the largest out-degree (``combine_sorted``), with the wrapper's
+  host ms and (where the tree counts them) the CUDA launches a call.
 
 The R-MAT stream is made once and kept in ``--cache`` (a git-ignored path)
 for the runs that follow.  Without CUDA it exits non-zero.
@@ -65,9 +72,10 @@ def time_cascade(torch, np, data):
         sess.ingest(R[g], C[g], V[g])
     torch.cuda.synchronize()
     rate = data["n_edges"] / (time.perf_counter() - t0)
-    batches = []
+    batches, routed = [], None
     for g in range(cs.STEPS):
         br, bc, bv, _ = sess.route(R[g], C[g], V[g])
+        routed = routed or (br, bc, bv)
         batches.append(ops.canonical_batch(br, bc, bv, sess.sr))
     h = multistream.init_packed(cs.K, sess.cuts, cfg.top_capacity, cfg.batch_size, sess.sr,
                                 device=cs.DEVICE)
@@ -76,7 +84,7 @@ def time_cascade(torch, np, data):
     same = cs.compare(torch, multistream.from_flat_layer_state(*flat), sess.state, "replay vs ingest")
     return {"rate": rate, "ms": float(np.mean(kernel_ms)), "median_ms": float(np.median(kernel_ms)),
             "host_ms": float(np.mean(host_ms)), "max_abs_err": same,
-            "kinds": cs.step_kinds(torch, np, casc_after, kernel_ms)}
+            "kinds": cs.step_kinds(torch, np, casc_after, kernel_ms)}, routed
 
 
 def time_merges(torch, np, data):
@@ -96,6 +104,36 @@ def time_merges(torch, np, data):
         ms = cs.time_kernel(torch, np, lambda: mops.merge_add(a, b, cap, sess.sr), reps=5)
         out[name] = {"ms": ms, "n_a": int(a.nnz), "n_b": int(b.nnz), "cap": cap}
         cs.log(f"[compare] merge_add {name}: {ms:.4f} ms")
+    return out, sess
+
+
+def time_sort(torch, np, data, routed, single):
+    from repro_torch.core import assoc
+    from repro_torch.kernels.sort_dedup import ops as sops
+
+    sr = single.sr
+    snap = single.snapshot()
+    zero_c = torch.where(snap.rows != assoc.PAD, 0, assoc.PAD).to(torch.int32)
+    longest = int(torch.bincount(data["R"].flatten()).max())  # the largest out-degree, as chip_smoke.py
+    run = torch.zeros(longest, dtype=torch.int32, device=cs.DEVICE)
+    batches = {"[8, 100000]": routed, "[100000]": (data["R"][0], data["C"][0], data["V"][0])}
+    shapes = {name: (sops.from_triples, b) for name, b in batches.items()}
+    for name, (r, c, v) in batches.items():  # the fold stage alone on the sorted batch
+        order = torch.sort(assoc.pack_keys(r, c), dim=-1, stable=True).indices
+        shapes[f"fold stage {name}"] = (sops.combine_sorted, tuple(torch.gather(x, -1, order) for x in (r, c, v)))
+    shapes.update({
+        f"degrees fold [{snap.capacity}]": (sops.combine_sorted, (snap.rows, zero_c, snap.vals)),
+        f"one run of {longest}": (sops.combine_sorted, (run, run, torch.ones(longest, device=cs.DEVICE))),
+    })
+    out = {}
+    for name, (entry, (r, c, v)) in shapes.items():
+        def call(entry=entry, r=r, c=c, v=v):
+            return entry(r, c, v, r.shape[-1], sr)
+
+        row = {"ms": cs.time_kernel(torch, np, call, reps=10)}
+        row["cuda_launches_per_call"], row["host_ms"] = cs.wrapper_costs(torch, np, sops, call)
+        out[name] = row
+        cs.log(f"[compare] sort_dedup {name}: {row}")
     return out
 
 
@@ -121,8 +159,10 @@ def main() -> int:
     data = load_data(torch, np, Path(args.cache))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    res = {"src": str(src), "card": smi,
-           "hier_cascade": time_cascade(torch, np, data), "merge_add": time_merges(torch, np, data)}
+    cascade, routed = time_cascade(torch, np, data)
+    merges, single = time_merges(torch, np, data)
+    res = {"src": str(src), "card": smi, "hier_cascade": cascade, "merge_add": merges,
+           "sort_dedup": time_sort(torch, np, data, routed, single)}
     print(json.dumps(res), flush=True)
     return 0
 

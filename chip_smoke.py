@@ -18,7 +18,10 @@ Phases, each of which asserts (any failure exits non-zero):
 3. hold ``merge_add`` and ``sort_dedup`` against their plain versions, bit
    for bit: every fold code, float32 and bfloat16, NaN and -0.0, leading
    batch axes, caps below the union, empty inputs, one huge run, up to 5 M
-   entries, a pair across every tile edge; and ``scatter_add``: float32 and
+   entries, a pair across every tile edge; for ``sort_dedup`` also runs
+   from every offset in a tile across 1, 2 and ~25 tiles, the degrees'
+   shape at 1 M, groups with no, one, scattered and prefix live entries, a
+   sort tile exactly full; and ``scatter_add``: float32 and
    bfloat16 tables and rows, PAD
    tails, NaN and -0.0 with row 0 live or dead (C10), negative and
    out-of-range ids, k = 0, d of 1, 3 and 4096, a misaligned table, and the
@@ -41,7 +44,9 @@ Phases, each of which asserts (any failure exits non-zero):
    at full width, through the kernels and inside ``plain_versions()``,
    bit-identical, every cascade level firing;
 8. per-call times of ``sort_dedup`` and ``merge_add`` at the main paths'
-   shapes (``merge_add``: the layer-1 merge, the snapshot merges and the
+   shapes (``sort_dedup``: both engines' batches, the degrees' fold stage
+   and its longest run, with the CUDA launches and the wrapper's host ms a
+   call; ``merge_add``: the layer-1 merge, the snapshot merges and the
    ``single`` engine's last 1->2, 2->3 and 3->4 cascade merges), with
    their byte bounds (dead-tail bytes apart), plain versions and
    ``torch.sort`` of the same keys as a reference;
@@ -338,6 +343,7 @@ def random_triples(torch, np, rng, shape, space, special, dtype):
 
 
 FOLDS = ("plus.times", "max.plus", "min.plus", "union.first")
+PAD_ROW = 2**31 - 1  # assoc.PAD: a dead key's row
 
 # (name, batch, n, key space, cap as a fraction of n): the CPU tests'
 # small shapes, tile edges, long runs, one huge run, a mid shape
@@ -403,6 +409,15 @@ def phase_parity_ops(torch, np):
                             want = assoc.combine_sorted_plain(cr, cc, cv, cap, sr)
                             err = max(err, assoc_same(torch, got, want, f"combine_sorted {fname} {name} {tag}"))
                             cases += 1
+                for name, r, c, v, valid, cap, is_sorted in sort_edge_cases(torch, np, rng, special, dtype):
+                    if is_sorted:
+                        got = sops.combine_sorted(r, c, v, cap, sr)
+                        want = assoc.combine_sorted_plain(r, c, v, cap, sr)
+                    else:
+                        got = sops.from_triples(r, c, v, cap, sr, valid)
+                        want = assoc.from_triples_plain(r, c, v, cap, sr, valid)
+                    err = max(err, assoc_same(torch, got, want, f"sort_dedup {name} {tag}"))
+                    cases += 1
                 # merge_add on sorted unique inputs
                 for name, batch, m, n, space, cap in (
                     ("small", (), 40, 24, 9, None),
@@ -446,6 +461,53 @@ def phase_parity_ops(torch, np):
                 log(f"[parity-ops] {tag}: bit-identical")
     log(f"[parity-ops] merge_add and sort_dedup: {cases} cases bit-identical to their plain versions")
     return err
+
+
+def sort_edge_cases(torch, np, rng, special, dtype):
+    """``(name, rows, cols, vals, valid, cap, sorted)`` on the card for
+    ``sort_dedup``'s own edges (``sorted``: the fold stage alone):
+
+    * runs from every offset in a 4096-entry tile crossing one tile edge,
+      from 456 offsets crossing two, from 16 crossing ~25 (combine_sorted on
+      the sorted keys, from_triples on a shuffle of them);
+    * the degrees' shape at 1 M: sorted rows of a heavy-tailed degree
+      sequence, column 0;
+    * groups with no live entry, one, a scattered ``valid`` (some live rows
+      PAD) and a live prefix; a sort tile exactly full of live entries."""
+    def values(n):
+        if special:
+            return special_values(torch, np, rng, (n,)).to(dtype)
+        return torch.tensor(rng.normal(size=n), dtype=torch.float32, device=DEVICE).to(dtype)
+
+    def dev(x):
+        return torch.tensor(x, dtype=torch.int32, device=DEVICE)
+
+    lens = np.concatenate([np.full(4096, 4097), np.full(456, 8192 + 9), np.full(16, 25 * 4096 + 255)])
+    rows = dev(np.repeat(np.arange(lens.size), lens))
+    n = rows.numel()
+    cols, v = torch.zeros_like(rows), values(n)
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    perm = torch.randperm(n, device=DEVICE, generator=gen)
+    yield "run offsets", rows, cols, v, None, n, True
+    yield "run offsets shuffled", rows[perm], cols[perm], v[perm], None, lens.size // 3, False
+    deg = np.minimum(rng.zipf(1.3, 1_000_000), 2**20)
+    drows = dev(np.sort(deg))
+    yield "degrees 1M", drows, torch.zeros_like(drows), values(drows.numel()), None, drows.numel(), True
+    g, w = 4, 20_000
+    r, c, v = random_triples(torch, np, rng, (g, w), 64, special, dtype)
+    live = np.zeros((g, w), bool)
+    live[1, rng.integers(w)] = True  # group 0: nothing live; group 1: one entry
+    live[2] = rng.random(w) < 0.3  # scattered, some live rows PAD
+    live[3, : w // 8] = True  # a live prefix
+    r[2, torch.tensor(rng.random(w) < 0.05, device=DEVICE)] = PAD_ROW
+    yield "dead and scattered groups", r, c, v, torch.tensor(live, device=DEVICE), w, False
+    yield "dead and scattered groups, cap", r, c, v, torch.tensor(live, device=DEVICE), 100, False
+    n = 3 * 8192
+    r, c, v = random_triples(torch, np, rng, (2, n), 256, special, dtype)
+    live = np.zeros((2, n), bool)
+    live[0] = True
+    live[1, 4096:8192] = True  # one sort tile exactly full, the tiles around it dead
+    yield "full tiles", r, c, v, torch.tensor(live, device=DEVICE), n, False
 
 
 def paired_assocs(torch, np, rng, n, batch, special, dtype, sr):
@@ -578,9 +640,11 @@ def phase_main(torch, np, data):
     launches = read_counts()
     check(launches == {"hier_cascade": STEPS, "sort_dedup": STEPS, "merge_add": 0, "scatter_add": 0}, launches)
     cuda_per_call = cuda_launches_per_call("hier_cascade")
+    sort_per_call = cuda_launches_per_call("sort_dedup")
     rate = n_edges / wall
     log(f"[main] ingest: {STEPS} groups in {wall:.3f} s = {rate:,.0f} updates/s, "
-        f"launches {launches}; hier_cascade made {cuda_per_call:g} CUDA launches a call")
+        f"launches {launches}; CUDA launches a call: hier_cascade {cuda_per_call:g}, "
+        f"sort_dedup {sort_per_call:g}")
     check(int(dropped) == 0, int(dropped))
     check(not sess.overflowed(), "no instance overflowed")
     casc = sess.state.cascades.cpu()
@@ -648,6 +712,7 @@ def phase_main(torch, np, data):
     return sess, {
         "kinds": kinds,
         "cuda_launches_per_call": cuda_per_call,
+        "sort_cuda_launches_per_call": sort_per_call,
         "scratch_bytes": scratch,
         "launches": launches,
         "err": err,
@@ -843,20 +908,21 @@ def phase_single(torch, np, data):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         counts = read_counts()
-        runs[mode] = (sess, wall, counts, cuda_launches_per_call("merge_add"))
+        runs[mode] = (sess, wall, counts, cuda_launches_per_call("merge_add"),
+                      cuda_launches_per_call("sort_dedup"))
         log(f"[single] {mode}: {STEPS} groups in {wall:.3f} s = {n_edges / wall:,.0f} updates/s, "
             f"launches {counts}")
         if mode == "kernels":
             plan = sess.plan
             log(f"[single] caps {plan.layer_caps}, state {plan.total_bytes / 1e9:.2f} GB planned")
-    sess, wall, counts, merge_cuda = runs["kernels"]
+    sess, wall, counts, merge_cuda, sort_cuda = runs["kernels"]
     check(counts["sort_dedup"] >= STEPS and counts["merge_add"] >= STEPS
           and counts["hier_cascade"] == 0, counts)
     check(sum(runs["plain"][2].values()) == 0, ("plain_versions() launched a kernel", runs["plain"][2]))
     casc = sess.state.cascades.cpu()
     check(bool((casc[1:] > 0).all()), ("every cascade level fired", casc))
     check(not sess.overflowed(), "the single instance did not overflow")
-    log(f"[single] merge_add made {merge_cuda:g} CUDA launches a call")
+    log(f"[single] CUDA launches a call: merge_add {merge_cuda:g}, sort_dedup {sort_cuda:g}")
     log(f"[single] cascades per layer {casc.tolist()}, nnz per layer "
         f"{[int(l.nnz) for l in sess.state.layers]}")
     err = compare(torch, sess.state, runs["plain"][0].state, "single: kernels vs plain")
@@ -872,7 +938,7 @@ def phase_single(torch, np, data):
     check_reads(torch, np, snap, top, data, "single")
     log(f"[single] snapshot + degrees + top_k {read_ms:.2f} ms, launches {read_counts()}")
     return sess, {"err": err, "rate": n_edges / wall, "launches": counts,
-                  "cuda_launches_per_call": merge_cuda}
+                  "cuda_launches_per_call": merge_cuda, "sort_cuda_launches_per_call": sort_cuda}
 
 
 def phase_algebra(torch, np, n_v=2**16, n_e=500_000, fanout=64):
@@ -982,6 +1048,26 @@ def time_host(torch, np, fn, reps=5):
     return float(np.mean(out))
 
 
+def wrapper_costs(torch, np, mod, fn, reps=5):
+    """CUDA launches a call of the kernel wrapper ``mod`` makes (as its
+    CUDA entry counts them; None where it does not count them), and the
+    wrapper's host ms a call, each call behind a spin of the card so the
+    host never waits on it."""
+    zero_counts()
+    fn()
+    launches = (mod.cuda_launch_count / max(mod.launch_count, 1)
+                if hasattr(mod, "cuda_launch_count") else None)
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return launches, float(np.mean(host))
+
+
 def phase_kernel_times(torch, np, data, main, single):
     """Per-call times of ``sort_dedup`` and ``merge_add`` at the main
     paths' shapes, with their byte bounds and plain versions; torch.sort on
@@ -1004,14 +1090,17 @@ def phase_kernel_times(torch, np, data, main, single):
         plain = time_host(torch, np, lambda: assoc.from_triples_plain(r, c, v, r.shape[-1], sr))
         keys = assoc.pack_keys(r, c)
         ref = time_kernel(torch, np, lambda: torch.sort(keys, dim=-1, stable=True))
+        launches, host = wrapper_costs(torch, np, sops, lambda: sops.from_triples(r, c, v, r.shape[-1], sr))
         rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                      "bytes": nbytes, "torch_sort_ms": ref}
+                      "bytes": nbytes, "torch_sort_ms": ref, "cuda_launches_per_call": launches,
+                      "host_ms": host}
         log(f"[times] sort_dedup {name}: {ms:.4f} ms, bound {rows[name]['bound_ms']:.5f} ms "
             f"({nbytes / 1e6:.2f} MB), plain {plain:.3f} ms; torch.sort of the same keys "
-            f"{ref:.4f} ms (reference only)")
+            f"{ref:.4f} ms (reference only); {launches:g} CUDA launches a call, wrapper host "
+            f"time {host:.4f} ms a call")
     # the fold stage at the degrees' shape (the snapshot's rows with column
     # 0: runs as long as a vertex's out-degree), and the longest such run
-    # alone (one thread folds it serially)
+    # alone
     snap = single.snapshot()
     zero_c = torch.where(snap.rows != assoc.PAD, 0, assoc.PAD).to(torch.int32)
     longest = int(data["out_deg"].max())
@@ -1025,10 +1114,12 @@ def phase_kernel_times(torch, np, data, main, single):
         nbytes = ENTRY_BYTES * (r.numel() + int(sops.combine_sorted(r, c, v, cap, sr).nnz))
         ms = time_kernel(torch, np, lambda: sops.combine_sorted(r, c, v, cap, sr), reps=5)
         plain = time_host(torch, np, lambda: assoc.combine_sorted_plain(r, c, v, cap, sr), reps=3)
+        launches, host = wrapper_costs(torch, np, sops, lambda: sops.combine_sorted(r, c, v, cap, sr))
         rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                      "bytes": nbytes}
+                      "bytes": nbytes, "cuda_launches_per_call": launches, "host_ms": host}
         log(f"[times] sort_dedup fold stage, {name}: {ms:.4f} ms, bound "
-            f"{rows[name]['bound_ms']:.5f} ms, plain {plain:.3f} ms")
+            f"{rows[name]['bound_ms']:.5f} ms, plain {plain:.3f} ms; {launches:g} CUDA launches "
+            f"a call, wrapper host time {host:.4f} ms a call")
     for name, (a, b, cap) in merge_add_cases(torch, data, single).items():
         out = mops.merge_add(a, b, cap, sr)
         n_out = int(out.nnz)
@@ -1508,6 +1599,9 @@ def main() -> int:
         "bound_ms_single_batch": sd1["bound_ms"],
         "torch_sort_ms": {"[8, 100000]": sd8["torch_sort_ms"], "[100000]": sd1["torch_sort_ms"]},
         "fold_stage": {k: v for k, v in times.items() if k.startswith(("degrees fold", "one run"))},
+        "cuda_launches_per_call": {"cuda": main_run["sort_cuda_launches_per_call"],
+                                   "single": single["sort_cuda_launches_per_call"]},
+        "host_ms": {"[8, 100000]": sd8["host_ms"], "[100000]": sd1["host_ms"]},
         "parity": "bit-identical",
     }, {
         "name": "scatter_add",

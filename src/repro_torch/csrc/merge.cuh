@@ -1,7 +1,8 @@
 // The merge of two sorted, unique-key COO lists with a semiring fold, by
 // merge-path partitions over the whole card (hier_cascade's and merge_add's
-// merge, below), and the key, fold and value helpers every kernel of the
-// port shares (sort_dedup too).
+// merge, below), its stable counterpart without a fold (sort_dedup's merge
+// rounds, at the end), and the key, fold and value helpers every kernel of
+// the port shares.
 //
 // Keys are (row, col) int32 pairs ordered lexicographically, compared as the
 // int64 key (row << 32) + (col + 2^31).  Dead slots carry PAD keys and sit
@@ -577,6 +578,118 @@ __global__ void __launch_bounds__(kMergeThreads, kMergeBlocksPerSM)
       __syncthreads();  // shared memory free for the next tile
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The stable merge-path merge of two sorted runs of 64-bit keys, each key
+// carrying a 4-byte payload, without folding (sort_dedup's merge rounds).
+//
+// Order.  Equal keys take the left run (a) first, so merging two stably
+// sorted runs sorts both stably.  The split of diagonal d is the pair
+// (i, d - i) such that the first d entries of that order are a[0, i) and
+// b[0, d - i): nothing folds, so there is no pair rule, and a tile of
+// diagonals [d0, d0 + kMergeTile) holds exactly that many entries.
+//
+// A warp finds a tile's splits (stable_warp_split, warp_split's 32-way
+// search); stable_merge_tile copies the two slices into shared memory with
+// cp.async in 16-byte vectors, each thread merges kMergeItems diagonals
+// (split by a binary search in shared memory), and the block stores the
+// merged keys and payloads in 16-byte vectors, staged at the output's
+// offset within 16 bytes.
+// ---------------------------------------------------------------------------
+
+struct StableMergeShared {
+  alignas(16) uint64_t keys[kMergeSlots];
+  alignas(16) uint32_t pay[kMergeSlots];
+  int2 thread_split[kMergeThreads + 1];
+  int2 tile_split[2];
+};
+
+// The split of diagonal d (0 <= d <= na + nb) of the left-first order of
+// a[0, na) and b[0, nb).  Whole warp calls; every lane returns it.
+__device__ inline int2 stable_warp_split(const uint64_t* a, int na,
+                                         const uint64_t* b, int nb, int d) {
+  const int lane = threadIdx.x & 31;
+  // i = lo + #{x in [lo, hi) : a[x] <= b[d - 1 - x]}, true then false
+  int lo = d > nb ? d - nb : 0;
+  int hi = d < na ? d : na;
+  auto probe = [&](int x) { return x < hi && a[x] <= b[d - 1 - x]; };
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) / 32;
+    const int c = __popc(__ballot_sync(0xffffffffu, probe(lo + lane * step)));
+    if (c == 0) {
+      hi = lo;
+    } else {
+      const int top = lo + c * step;
+      lo += (c - 1) * step + 1;
+      hi = top < hi ? top : hi;
+    }
+  }
+  const int i = lo + __popc(__ballot_sync(0xffffffffu, probe(lo + lane)));
+  return make_int2(i, d - i);
+}
+
+// out[0, na + nb) = the left-first merge of the tile's slices a[0, na) and
+// b[0, nb), keys and payloads, all in global memory (na + nb <=
+// kMergeTile).  Whole block calls.
+__device__ inline void stable_merge_tile(const uint64_t* ak, const uint32_t* ai,
+                                         int na, const uint64_t* bk,
+                                         const uint32_t* bi, int nb,
+                                         uint64_t* ok, uint32_t* oi,
+                                         StableMergeShared& sh) {
+  const int tid = threadIdx.x;
+  const int n = na + nb;
+  const int ka = lead(ak), kb = lead_after(ka + na, bk);
+  const int ia = lead(ai), ib = lead_after(ia + na, bi);
+  block_copy_async(sh.keys + ka, ak, na);
+  block_copy_async(sh.keys + kb, bk, nb);
+  block_copy_async(sh.pay + ia, ai, na);
+  block_copy_async(sh.pay + ib, bi, nb);
+  copy_wait();
+  __syncthreads();
+  {
+    const int d = min(tid * kMergeItems, n);
+    int lo = max(0, d - nb), hi = min(d, na);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (sh.keys[ka + mid] <= sh.keys[kb + d - 1 - mid]) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    sh.thread_split[tid] = make_int2(lo, d - lo);
+    if (tid == 0) sh.thread_split[kMergeThreads] = make_int2(na, nb);
+  }
+  __syncthreads();
+  int x = sh.thread_split[tid].x, y = sh.thread_split[tid].y;
+  const int ex = sh.thread_split[tid + 1].x, ey = sh.thread_split[tid + 1].y;
+  uint64_t okey[kMergeItems];
+  uint32_t opay[kMergeItems];
+#pragma unroll
+  for (int q = 0; q < kMergeItems; ++q) {
+    const bool has_a = x < ex, has_b = y < ey;
+    const uint64_t va = has_a ? sh.keys[ka + x] : 0;
+    const uint64_t vb = has_b ? sh.keys[kb + y] : 0;
+    const bool take_a = has_a && (!has_b || va <= vb);
+    okey[q] = take_a ? va : vb;
+    opay[q] = take_a ? sh.pay[ia + x] : (has_b ? sh.pay[ib + y] : 0);
+    x += take_a;
+    y += !take_a && has_b;
+  }
+  __syncthreads();  // every thread has read its inputs
+  const int ko = lead(ok), io = lead(oi);
+  const int mine = min(kMergeItems, max(0, n - tid * kMergeItems));
+#pragma unroll
+  for (int q = 0; q < kMergeItems; ++q) {
+    if (q < mine) {
+      sh.keys[ko + tid * kMergeItems + q] = okey[q];
+      sh.pay[io + tid * kMergeItems + q] = opay[q];
+    }
+  }
+  __syncthreads();
+  block_store(ok, sh.keys + ko, n);
+  block_store(oi, sh.pay + io, n);
 }
 
 }  // namespace d4m

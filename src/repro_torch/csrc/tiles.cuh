@@ -1,7 +1,6 @@
 // Device-wide building blocks of the merge_add and sort_dedup kernels:
 // tiles of kTile consecutive entries of one group (a leading batch index),
-// a one-block scan of per-tile counts that also finishes each group's
-// nnz/overflow, and the fill of an output's dead tail.
+// and the fill of an output's dead tail.
 //
 // A group of width n has tiles_per_group = ceil(n / kTile) tiles; tile t
 // belongs to group t / tiles_per_group, so no tile spans two groups.  A
@@ -13,8 +12,6 @@
 
 #include <cstdint>
 
-#include <cub/block/block_scan.cuh>
-
 #include "merge.cuh"
 
 namespace d4m {
@@ -22,7 +19,6 @@ namespace d4m {
 constexpr int kTileThreads = 256;
 constexpr int kTileItems = 16;
 constexpr int64_t kTile = kTileThreads * kTileItems;
-constexpr int kScanThreads = 1024;
 constexpr int kFlatThreads = 256;
 
 inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
@@ -31,35 +27,6 @@ inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 inline unsigned int flat_blocks(int64_t total) {
   const int64_t b = ceil_div(total, kFlatThreads);
   return static_cast<unsigned int>(b < 132 * 32 ? b : 132 * 32);
-}
-
-// off[t] = counts[0] + ... + counts[t-1] for t in [0, n_tiles], in one
-// block; then finish(g, count of group g) for each group.
-template <typename Finish>
-__global__ void __launch_bounds__(kScanThreads)
-    scan_tile_counts(const int32_t* counts, int32_t* off, int64_t n_tiles,
-                     int64_t groups, int64_t tiles_per_group, Finish finish) {
-  using Scan = cub::BlockScan<int32_t, kScanThreads>;
-  __shared__ typename Scan::TempStorage tmp;
-  __shared__ int32_t carry;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int64_t base = 0; base < n_tiles; base += kScanThreads) {
-    const int64_t t = base + threadIdx.x;
-    const int32_t c = t < n_tiles ? counts[t] : 0;
-    int32_t excl, total;
-    Scan(tmp).ExclusiveSum(c, excl, total);
-    const int32_t cr = carry;
-    if (t < n_tiles) off[t] = cr + excl;
-    __syncthreads();  // every thread read carry; scan storage free again
-    if (threadIdx.x == 0) carry = cr + total;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) off[n_tiles] = carry;
-  __syncthreads();  // off[] written by this block is visible to it now
-  for (int64_t g = threadIdx.x; g < groups; g += kScanThreads) {
-    finish(g, off[(g + 1) * tiles_per_group] - off[g * tiles_per_group]);
-  }
 }
 
 // Dead slots [nnz[g], cap) of each output group: PAD keys, the zero value.

@@ -104,17 +104,20 @@ class Prefetcher:
             finally:
                 # always signal end-of-stream, even on an exception: a
                 # blocked consumer must wake instead of waiting forever.
-                # If the queue is full, evict one batch to make room — the
-                # producer is the only putter by now, so this terminates.
+                # While the queue is full a consumer is still reading: wait
+                # for room.  Once close() has begun, evict a batch to make
+                # room instead (the producer is the only putter by now, so
+                # this terminates).
                 while True:
                     try:
-                        self.q.put_nowait(_SENTINEL)
+                        self.q.put(_SENTINEL, timeout=0.05)
                         break
                     except queue.Full:
-                        try:
-                            self.q.get_nowait()
-                        except queue.Empty:
-                            pass
+                        if self._stop.is_set():
+                            try:
+                                self.q.get_nowait()
+                            except queue.Empty:
+                                pass
 
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()

@@ -10,13 +10,6 @@ import torch
 #: value type -> the dtype code the CUDA entry points take
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 INT32_LIMIT = 2**31 - 1
-#: entries of one tile of the kernels' block scans (csrc/tiles.cuh kTile)
-TILE = 4096
-
-
-def n_tiles(n: int) -> int:
-    """Tiles of one group of width ``n``."""
-    return -(-int(n) // TILE)
 
 
 def dtype_code(vals: torch.Tensor, kernel: str) -> int:

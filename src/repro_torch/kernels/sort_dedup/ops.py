@@ -18,14 +18,21 @@ included (:func:`repro_torch.core.assoc.from_triples_plain` and
 The kernel (``repro_torch/csrc/sort_dedup.cu``) replaces the TPU kernel
 ``repro/kernels/sort_dedup/kernel.py:50`` (``sort_dedup_pallas``).  It is
 bound by bytes: at least each input triple read once and each live output
-entry written once (12 B each in float32).  The sort is a merge sort:
-tiles of 4096 entries sorted in shared memory (a stable block radix sort on
-the packed 64-bit key, carrying the input index), then one merge round per
-doubling of the run width, each entry placed by a binary search in its
-partner run; each round reads and writes 12 B an entry.  The fold gives
-one thread to each run end, which folds its run in O(run + log n) (see the
-note at the top of the source).  Values are float32 or bfloat16; other
-types raise ``NotImplementedError``.
+entry written once (12 B each in float32).  The sort is a merge sort of
+the live keys only: tiles of 4096 entries sorted in shared memory (a
+stable block radix sort on the bits that vary among the tile's live keys;
+dead keys last and dropped), then one merge round per doubling of the run
+width, each a merge-path merge of the runs' live prefixes; each key
+carries its value's bits.  The fold builds in shared memory the part of each tile's pair tree
+that its run ends read, and a tree over tiles, and folds each run end from
+at most ``2 log2(n)`` nodes in ``lax.associative_scan``'s bracketing: no
+walk along a run (see the note at the top of the source).
+``from_triples`` makes ``1 + ceil(log2(n / 4096)) + 2`` CUDA launches,
+``combine_sorted`` 2, each a programmatic dependent launch (launched as the
+kernel before it on the stream finishes).  Values are float32 or
+bfloat16; other types raise ``NotImplementedError``.  The workspaces are
+kept per device and stream between calls, so a call allocates only its
+outputs.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  Nothing falls back.
@@ -33,6 +40,7 @@ raises.  Nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,25 +52,55 @@ from .. import _build, _launch
 #: wrapper calls that launched the kernel (both entry points; the chip
 #: smoke test zeroes it)
 launch_count = 0
+#: CUDA kernel launches those calls made, as the CUDA entries count them
+cuda_launch_count = 0
+
+#: (device index, stream) -> (work, zeroed): the kernel's workspaces, grown
+#: as needed and kept between calls.  ``zeroed`` holds counters every call
+#: leaves zero, so it is zeroed only when made.
+_scratch: dict = {}
 
 
 def _lib():
     lib = _build.load("sort_dedup")
     if lib.sort_dedup_from_triples.argtypes is None:
-        vp, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.sort_dedup_from_triples.argtypes = (
-            [ctypes.c_int, i64, i64] + [vp] * 9 + [i64] + [vp] * 6
-            + [ctypes.c_int, ctypes.c_uint32, vp]
-        )
-        lib.sort_dedup_from_triples.restype = ctypes.c_int
-        lib.sort_dedup_combine.argtypes = (
-            [ctypes.c_int, i64, i64] + [vp] * 8 + [i64] + [vp] * 3
-            + [ctypes.c_int, ctypes.c_uint32, vp]
-        )
-        lib.sort_dedup_combine.restype = ctypes.c_int
-        lib.sort_dedup_error_string.argtypes = [ctypes.c_int]
+        vp, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        tail = [c_int, ctypes.c_uint32, ctypes.POINTER(c_int), vp]  # fold, zero, launches, stream
+        lib.sort_dedup_from_triples.argtypes = [c_int, i64, i64] + [vp] * 9 + [i64] + [vp] * 2 + tail
+        lib.sort_dedup_from_triples.restype = c_int
+        lib.sort_dedup_combine.argtypes = [c_int, i64, i64] + [vp] * 8 + [i64] + [vp] * 2 + tail
+        lib.sort_dedup_combine.restype = c_int
+        lib.sort_dedup_workspace.argtypes = [i64, i64, c_int, ctypes.POINTER(i64)]
+        lib.sort_dedup_workspace.restype = c_int
+        lib.sort_dedup_error_string.argtypes = [c_int]
         lib.sort_dedup_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def workspace_bytes(groups: int, n: int, sort: bool) -> tuple:
+    """Bytes ``(work, zeroed)`` of a call on ``groups`` groups of ``n``
+    (``sort`` False: ``combine_sorted``), as the CUDA source lays them
+    out."""
+    lib = _lib()
+    sizes = (ctypes.c_int64 * 2)()
+    err = lib.sort_dedup_workspace(groups, n, int(sort), sizes)
+    _launch.raise_on(err, lib, "sort_dedup", "sort_dedup")
+    return tuple(sizes)
+
+
+def workspace(dev: torch.device, stream: int, work_bytes: int, zeroed_bytes: int):
+    """Device pointers ``(work, zeroed)`` of at least the given sizes for
+    ``stream`` on ``dev``, kept from earlier calls where they are large
+    enough (``zeroed`` is zero when made)."""
+    key = (_launch.index(dev), stream)
+    work, zeroed = _scratch.get(key, (None, None))
+    if work is None or work.numel() < work_bytes:
+        work = torch.empty(work_bytes, dtype=torch.uint8, device=dev)
+    if zeroed is None or zeroed.numel() < zeroed_bytes:
+        zeroed = torch.zeros(zeroed_bytes, dtype=torch.uint8, device=dev)
+    _scratch[key] = (work, zeroed)
+    return work.data_ptr(), zeroed.data_ptr()
 
 
 def from_triples(
@@ -100,7 +138,7 @@ def _outputs(batch, cap, dtype, dev) -> Assoc:
 
 
 def _launch_kernel(rows, cols, vals, cap, sr, valid, *, sort: bool) -> Assoc:
-    global launch_count
+    global launch_count, cuda_launch_count
     cap = int(cap)
     n = rows.shape[-1]
     batch = rows.shape[:-1]
@@ -121,30 +159,25 @@ def _launch_kernel(rows, cols, vals, cap, sr, valid, *, sort: bool) -> Assoc:
     r = _launch.flat(rows, g, n, torch.int32)
     c = _launch.flat(cols, g, n, torch.int32)
     v = _launch.flat(vals, g, n, vals.dtype)
-    tiles = g * _launch.n_tiles(n)
-    counts = torch.empty(2 * tiles + 1, dtype=torch.int32, device=dev)
-    counts, off = torch.split(counts, [tiles, tiles + 1])
-    outs = (out.rows, out.cols, out.vals, out.nnz, out.overflow)
+    stream = _launch.stream(dev)
+    work, zeroed = workspace(dev, stream, *workspace_bytes(g, n, sort))
+    outs = (out.rows.data_ptr(), out.cols.data_ptr(), out.vals.data_ptr(),
+            out.nnz.data_ptr(), out.overflow.data_ptr())
     lib = _lib()
-    common = (sr.fold, _launch.zero_bits(sr.zero, vals.dtype), _launch.stream(dev))
+    launches = ctypes.c_int(0)
+    common = (sr.fold, _launch.zero_bits(sr.zero, vals.dtype), ctypes.byref(launches), stream)
     if sort:
-        ok = None if valid is None else _launch.flat(valid, g, n, torch.bool)
-        keys = torch.empty((2, g * n), dtype=torch.int64, device=dev)
-        idx = torch.empty((2, g * n), dtype=torch.int32, device=dev)
+        ok = None if valid is None else _launch.flat(valid, g, n, torch.bool).data_ptr()
         err = lib.sort_dedup_from_triples(
-            code, g, n, r.data_ptr(), c.data_ptr(), v.data_ptr(),
-            None if ok is None else ok.data_ptr(),
-            *(t.data_ptr() for t in outs), cap,
-            keys[0].data_ptr(), keys[1].data_ptr(), idx[0].data_ptr(), idx[1].data_ptr(),
-            counts.data_ptr(), off.data_ptr(), *common,
+            code, g, n, r.data_ptr(), c.data_ptr(), v.data_ptr(), ok, *outs, cap,
+            work, zeroed, *common,
         )
     else:
-        keys = torch.empty(g * n, dtype=torch.int64, device=dev)
         err = lib.sort_dedup_combine(
-            code, g, n, r.data_ptr(), c.data_ptr(), v.data_ptr(),
-            *(t.data_ptr() for t in outs), cap,
-            keys.data_ptr(), counts.data_ptr(), off.data_ptr(), *common,
+            code, g, n, r.data_ptr(), c.data_ptr(), v.data_ptr(), *outs, cap,
+            work, zeroed, *common,
         )
+    cuda_launch_count += launches.value
     _launch.raise_on(err, lib, "sort_dedup", "sort_dedup")
     launch_count += 1
     return out

@@ -95,6 +95,30 @@ def test_prefetcher_hands_over_tensors():
         assert_same(b["labels"], ref.batch_at(s)["labels"])
 
 
+def test_prefetcher_keeps_every_batch_for_a_slow_consumer():
+    """A consumer that lags at the stream's end still gets every batch: the
+    end-of-stream marker waits for room instead of evicting one."""
+    import time
+
+    class Short(ttok.TokenStream):
+        def __next__(self):
+            if self.step >= 3:
+                raise StopIteration
+            return super().__next__()
+
+    pf = ttok.Prefetcher(Short(vocab=100, batch=2, seq=8, seed=1), depth=2, device="cpu")
+    try:
+        got = [next(pf)]
+        time.sleep(0.3)  # the producer reaches the stream's end with the queue full
+        got += list(iter(lambda: next(pf, None), None))
+    finally:
+        pf.close()
+    ref = jtok.TokenStream(vocab=100, batch=2, seq=8, seed=1)
+    assert len(got) == 3
+    for s, b in enumerate(got):
+        assert_same(b["tokens"], ref.batch_at(s)["tokens"])
+
+
 def test_prefetcher_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
