@@ -121,18 +121,9 @@ def leaves(h):
 def compare(torch, got, want, what: str) -> float:
     """Bitwise equality of two hierarchies; returns the max abs value error
     (0.0 when identical), raising on any difference."""
-    err = 0.0
     for i, (g, w) in enumerate(zip(leaves(got), leaves(want))):
-        if g.dtype.is_floating_point:
-            same = torch.equal(g.view(torch.int32), w.view(torch.int32))
-            if not same:
-                both = torch.isfinite(g) & torch.isfinite(w)
-                err = max(err, float((g[both] - w[both]).abs().max()) if both.any() else float("inf"))
-        else:
-            same = torch.equal(g, w)
-        if not same:
-            raise RuntimeError(f"{what}: leaf {i} differs (max abs value error {err})")
-    return err
+        bits_same(torch, g, w, f"{what}: leaf {i}")
+    return 0.0
 
 
 def phase_build():
@@ -177,26 +168,46 @@ def special_values(torch, np, rng, shape):
     return torch.tensor(v, device=DEVICE)
 
 
+def make_values(torch, np, rng, shape, special, dtype):
+    """Values of ``dtype`` on the card.  Floats: normal, or with
+    ``special`` a quarter each NaN, -0.0, +0.0 and normal, rounded to the
+    type.  int32: half small, half anywhere in the int32 range (so ``plus``
+    wraps), and with ``special`` a quarter each INT32_MIN and INT32_MAX."""
+    if dtype == torch.int32:
+        v = np.where(rng.random(shape) < 0.5, rng.integers(-(2**31), 2**31, shape),
+                     rng.integers(-5, 6, shape))
+        if special:
+            pick = rng.integers(0, 4, shape)
+            v[pick == 0], v[pick == 1] = -(2**31), 2**31 - 1
+        return torch.tensor(v.astype(np.int32), device=DEVICE)
+    if special:
+        return special_values(torch, np, rng, shape).to(dtype)
+    return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=DEVICE).to(dtype)
+
+
 def plant_special(torch, h):
     """Overwrite every third live entry of every layer with -0.0 and the
-    next with NaN, so later merges fold into such entries."""
+    next with NaN (int32: INT32_MIN and INT32_MAX), so later merges fold
+    into such entries."""
     for l in h.layers:
         idx = torch.arange(l.capacity, device=l.vals.device)
         live = idx < l.nnz[:, None]
-        l.vals[live & (idx % 3 == 0)] = -0.0
-        l.vals[live & (idx % 3 == 1)] = float("nan")
+        ints = l.vals.dtype == torch.int32
+        l.vals[live & (idx % 3 == 0)] = -(2**31) if ints else -0.0
+        l.vals[live & (idx % 3 == 1)] = 2**31 - 1 if ints else float("nan")
 
 
 def phase_parity(torch, np):
-    """Kernel against plain version on the card, bit-exactly: float32 and
-    bfloat16, every fold code, NaN and -0.0, merges that span many
+    """Kernel against plain version on the card, bit-exactly: float32,
+    bfloat16, float16 and int32, every fold code, NaN and -0.0 (int32: its
+    extremes, and ``plus`` wrapping), merges that span many
     partitions (layers of over a million entries), a merge that truncates
     at the top layer's cap, steps where no cut fires, and equal-key pairs on
     every partition boundary (:func:`boundary_case`)."""
     from repro_torch.core import semiring
     from repro_torch.kernels.hier_cascade import ops
 
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16, i32 = torch.float32, torch.bfloat16, torch.float16, torch.int32
     cases = [
         # (name, K, cuts, top, batch, steps, key space, semiring, value type)
         ("absent-K1", 1, (512,), 2048, 8, 5, 48, "plus.times", f32),
@@ -220,6 +231,9 @@ def phase_parity(torch, np):
             cases.append((f"mid-{srn}{tag}", 8, (4096, 32768), 262144, 4096, 64, 1024, srn, dt))
             cases.append((f"nan-{srn}{tag}", 8, (8, 32), 256, 16, 8, 48, srn, dt))
             cases.append((f"mid-nan-{srn}{tag}", 8, (4096, 32768), 262144, 4096, 24, 1024, srn, dt))
+        for dt, tag in ((f16, "-f16"), (i32, "-i32")):
+            cases.append((f"mid-{srn}{tag}", 8, (4096, 32768), 262144, 4096, 64, 1024, srn, dt))
+            cases.append((f"nan-{srn}{tag}", 8, (8, 32), 256, 16, 8, 48, srn, dt))
     err = 0.0
     for name, k, cuts, top, batch, steps, space, srn, dt in cases:
         sr = semiring.get(srn)
@@ -227,11 +241,7 @@ def phase_parity(torch, np):
         special = "nan" in name
         R = torch.tensor(rng.integers(0, space, (steps, k, batch)), dtype=torch.int32, device=DEVICE)
         C = torch.tensor(rng.integers(0, space, (steps, k, batch)), dtype=torch.int32, device=DEVICE)
-        if special:
-            V = special_values(torch, np, rng, (steps, k, batch))
-        else:
-            V = torch.tensor(rng.normal(size=(steps, k, batch)), dtype=torch.float32, device=DEVICE)
-        V = V.to(dt)
+        V = make_values(torch, np, rng, (steps, k, batch), special, dt)
         hk, caps = ops.init_state(k, cuts, top, batch, sr, dt, device=DEVICE)
         hp, _ = ops.init_state(k, cuts, top, batch, sr, dt, device=DEVICE)
         for t in range(steps):
@@ -248,13 +258,16 @@ def phase_parity(torch, np):
             check(int(casc[:, 2].sum()) > 0, (name, casc))
         if name.startswith("trunc"):
             check(bool(hk.layers[-1].overflow.all()), (name, "the top layer truncated at its cap"))
-        if special:
+        if special and dt != i32:
             n_nan = sum(int(l.vals.isnan().sum()) for l in hk.layers)
             check(n_nan > 0, (name, "NaN survives in the layers"))
         log(f"[parity] {name}: bit-identical, cascades per layer {casc.sum(0).tolist()}, "
             f"nnz per layer (instance 0) {[int(l.nnz[0]) for l in hk.layers]}")
     for srn in FOLDS:
         for dt in (f32, bf16):
+            err = max(err, boundary_case(torch, np, srn, dt))
+    for srn in ("plus.times", "min.plus"):
+        for dt in (f16, i32):
             err = max(err, boundary_case(torch, np, srn, dt))
     return err
 
@@ -284,14 +297,14 @@ def boundary_case(torch, np, srn, dtype):
         states.append(h)
     for i, idx in presets.items():
         r, c = keys(idx)
-        v = special_values(torch, np, rng, (k, idx.size)).to(dtype)
+        v = make_values(torch, np, rng, (k, idx.size), True, dtype)
         for h in states:
             l = h.layers[i]
             l.rows[:, : idx.size], l.cols[:, : idx.size], l.vals[:, : idx.size] = r, c, v
             l.nnz.fill_(idx.size)
     r, c = keys(s)
     R, C = r.expand(k, n).contiguous(), c.expand(k, n).contiguous()
-    V = special_values(torch, np, rng, (k, n)).to(dtype)
+    V = make_values(torch, np, rng, (k, n), True, dtype)
     hk = ops.cascade_update(states[0], R, C, V, cuts, caps, sr)
     hp = plain_update(states[1], R, C, V, cuts, caps, sr)
     torch.cuda.synchronize()
@@ -331,15 +344,11 @@ def bits_same(torch, got, want, what) -> float:
 
 
 def random_triples(torch, np, rng, shape, space, special, dtype):
-    """int32 rows/cols in ``[0, space)`` and values (a quarter each NaN,
-    -0.0, +0.0 and normal when ``special``) on the card."""
+    """int32 rows/cols in ``[0, space)`` and :func:`make_values` on the
+    card."""
     r = torch.tensor(rng.integers(0, space, shape), dtype=torch.int32, device=DEVICE)
     c = torch.tensor(rng.integers(0, space, shape), dtype=torch.int32, device=DEVICE)
-    if special:
-        v = special_values(torch, np, rng, shape)
-    else:
-        v = torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=DEVICE)
-    return r, c, v.to(dtype)
+    return r, c, make_values(torch, np, rng, shape, special, dtype)
 
 
 FOLDS = ("plus.times", "max.plus", "min.plus", "union.first")
@@ -366,99 +375,103 @@ SORT_CASES = [
 
 def phase_parity_ops(torch, np):
     """``merge_add`` and ``sort_dedup`` against their plain versions on the
-    card, bit for bit: every fold code, float32 and bfloat16, NaN and -0.0,
-    leading batch axes, caps below the union, empty inputs, runs up to the
-    whole input, and a mid shape of about 1 M entries."""
+    card, bit for bit: every fold code, float32 and bfloat16 (normal and
+    special values), float16 and int32 (special values: NaN and -0.0, or
+    the int32 extremes), leading batch axes, caps below the union, empty
+    inputs, runs up to the whole input, and a mid shape of about 1 M
+    entries."""
     from repro_torch.core import assoc, semiring
     from repro_torch.kernels.merge_add import ops as mops
     from repro_torch.kernels.sort_dedup import ops as sops
 
     err, cases = 0.0, 0
+    # (value type, special values, seed offset)
+    variants = [(torch.float32, False, 0), (torch.float32, True, 1), (torch.bfloat16, False, 7),
+                (torch.bfloat16, True, 8), (torch.float16, True, 14), (torch.int32, True, 21)]
     for srn in FOLDS:
         sr = semiring.get(srn)
-        for dtype in (torch.float32, torch.bfloat16):
-            for special in (False, True):
-                rng = np.random.default_rng(len(srn) * 31 + int(special) + 7 * (dtype == torch.bfloat16))
-                tag = f"{srn}/{str(dtype)[6:]}/{'special' if special else 'normal'}"
-                # from_triples, with and without a valid mask
-                for name, batch, n, space, frac in SORT_CASES:
-                    r, c, v = random_triples(torch, np, rng, batch + (n,), space, special, dtype)
-                    cap = max(1, int(n * frac))
-                    valid = None
-                    if name in ("n333", "K8-group"):
-                        valid = torch.tensor(rng.random(batch + (n,)) < 0.8, device=DEVICE)
+        for dtype, special, seed in variants:
+            rng = np.random.default_rng(len(srn) * 31 + seed)
+            tag = f"{srn}/{str(dtype)[6:]}/{'special' if special else 'normal'}"
+            # from_triples, with and without a valid mask
+            for name, batch, n, space, frac in SORT_CASES:
+                r, c, v = random_triples(torch, np, rng, batch + (n,), space, special, dtype)
+                cap = max(1, int(n * frac))
+                valid = None
+                if name in ("n333", "K8-group"):
+                    valid = torch.tensor(rng.random(batch + (n,)) < 0.8, device=DEVICE)
+                got = sops.from_triples(r, c, v, cap, sr, valid)
+                want = assoc.from_triples_plain(r, c, v, cap, sr, valid)
+                err = max(err, assoc_same(torch, got, want, f"from_triples {name} {tag}"))
+                cases += 1
+                # the fold stage alone: on the sorted triples, on degree
+                # keys (row, 0), and on sorted unique keys with PAD holes
+                # (what elem_mul and extract_row hand it)
+                if n >= 2 and name in ("n333", "batch", "long-runs", "mid"):
+                    order = torch.sort(assoc.pack_keys(r, c), dim=-1, stable=True).indices
+                    sr_, sc_, sv_ = (torch.gather(x, -1, order) for x in (r, c, v))
+                    holes = torch.tensor(rng.random(batch + (n,)) < 0.3, device=DEVICE)
+                    u = assoc.from_triples_plain(r, c, v, n, sr)
+                    for fname, cr, cc, cv in (
+                        ("sorted", sr_, sc_, sv_),
+                        ("degrees", sr_, torch.zeros_like(sc_), sv_),
+                        ("holes", torch.where(holes, assoc.PAD, u.rows),
+                         torch.where(holes, assoc.PAD, u.cols), u.vals),
+                    ):
+                        got = sops.combine_sorted(cr, cc, cv, cap, sr)
+                        want = assoc.combine_sorted_plain(cr, cc, cv, cap, sr)
+                        err = max(err, assoc_same(torch, got, want, f"combine_sorted {fname} {name} {tag}"))
+                        cases += 1
+            for name, r, c, v, valid, cap, is_sorted in sort_edge_cases(torch, np, rng, special, dtype):
+                if is_sorted:
+                    got = sops.combine_sorted(r, c, v, cap, sr)
+                    want = assoc.combine_sorted_plain(r, c, v, cap, sr)
+                else:
                     got = sops.from_triples(r, c, v, cap, sr, valid)
                     want = assoc.from_triples_plain(r, c, v, cap, sr, valid)
-                    err = max(err, assoc_same(torch, got, want, f"from_triples {name} {tag}"))
-                    cases += 1
-                    # the fold stage alone: on the sorted triples, on degree
-                    # keys (row, 0), and on sorted unique keys with PAD holes
-                    # (what elem_mul and extract_row hand it)
-                    if n >= 2 and name in ("n333", "batch", "long-runs", "mid"):
-                        order = torch.sort(assoc.pack_keys(r, c), dim=-1, stable=True).indices
-                        sr_, sc_, sv_ = (torch.gather(x, -1, order) for x in (r, c, v))
-                        holes = torch.tensor(rng.random(batch + (n,)) < 0.3, device=DEVICE)
-                        u = assoc.from_triples_plain(r, c, v, n, sr)
-                        for fname, cr, cc, cv in (
-                            ("sorted", sr_, sc_, sv_),
-                            ("degrees", sr_, torch.zeros_like(sc_), sv_),
-                            ("holes", torch.where(holes, assoc.PAD, u.rows),
-                             torch.where(holes, assoc.PAD, u.cols), u.vals),
-                        ):
-                            got = sops.combine_sorted(cr, cc, cv, cap, sr)
-                            want = assoc.combine_sorted_plain(cr, cc, cv, cap, sr)
-                            err = max(err, assoc_same(torch, got, want, f"combine_sorted {fname} {name} {tag}"))
-                            cases += 1
-                for name, r, c, v, valid, cap, is_sorted in sort_edge_cases(torch, np, rng, special, dtype):
-                    if is_sorted:
-                        got = sops.combine_sorted(r, c, v, cap, sr)
-                        want = assoc.combine_sorted_plain(r, c, v, cap, sr)
-                    else:
-                        got = sops.from_triples(r, c, v, cap, sr, valid)
-                        want = assoc.from_triples_plain(r, c, v, cap, sr, valid)
-                    err = max(err, assoc_same(torch, got, want, f"sort_dedup {name} {tag}"))
-                    cases += 1
-                # merge_add on sorted unique inputs
-                for name, batch, m, n, space, cap in (
-                    ("small", (), 40, 24, 9, None),
-                    ("small-cap", (), 40, 24, 9, 10),
-                    ("batch", (3, 2), 64, 48, 12, None),
-                    ("disjoint-width", (), 1000, 30, 100, 500),
-                    ("mid", (), 1_000_000, 300_000, 2048, None),
-                    ("mid-cap", (2,), 500_000, 500_000, 1024, 600_000),
-                    ("big", (), 3_000_000, 2_000_000, 4096, None),
-                    ("big-cap", (2,), 1_500_000, 1_500_000, 2048, 1_000_000),
-                ):
-                    ra, ca, va = random_triples(torch, np, rng, batch + (m,), space, special, dtype)
-                    rb, cb, vb = random_triples(torch, np, rng, batch + (n,), space, special, dtype)
-                    a = assoc.from_triples_plain(ra, ca, va, m, sr)
-                    b = assoc.from_triples_plain(rb, cb, vb, n, sr)
-                    if name == "batch":
-                        a.overflow = torch.tensor(rng.random(batch) < 0.5, device=DEVICE)
+                err = max(err, assoc_same(torch, got, want, f"sort_dedup {name} {tag}"))
+                cases += 1
+            # merge_add on sorted unique inputs
+            for name, batch, m, n, space, cap in (
+                ("small", (), 40, 24, 9, None),
+                ("small-cap", (), 40, 24, 9, 10),
+                ("batch", (3, 2), 64, 48, 12, None),
+                ("disjoint-width", (), 1000, 30, 100, 500),
+                ("mid", (), 1_000_000, 300_000, 2048, None),
+                ("mid-cap", (2,), 500_000, 500_000, 1024, 600_000),
+                ("big", (), 3_000_000, 2_000_000, 4096, None),
+                ("big-cap", (2,), 1_500_000, 1_500_000, 2048, 1_000_000),
+            ):
+                ra, ca, va = random_triples(torch, np, rng, batch + (m,), space, special, dtype)
+                rb, cb, vb = random_triples(torch, np, rng, batch + (n,), space, special, dtype)
+                a = assoc.from_triples_plain(ra, ca, va, m, sr)
+                b = assoc.from_triples_plain(rb, cb, vb, n, sr)
+                if name == "batch":
+                    a.overflow = torch.tensor(rng.random(batch) < 0.5, device=DEVICE)
+                got = mops.merge_add(a, b, cap, sr)
+                want = assoc.add_plain(a, b, cap, sr)
+                err = max(err, assoc_same(torch, got, want, f"merge_add {name} {tag}"))
+                cases += 1
+            # an equal-key pair across every merge-path tile edge
+            for batch, cap in (((), None), ((2,), None), ((), 1_500_000)):
+                a, b = paired_assocs(torch, np, rng, 1_000_000, batch, special, dtype, sr)
+                got = mops.merge_add(a, b, cap, sr)
+                want = assoc.add_plain(a, b, cap, sr)
+                err = max(err, assoc_same(torch, got, want, f"merge_add pairs {batch} {cap} {tag}"))
+                cases += 1
+            for wa, wb in ((0, 5), (5, 0), (0, 0), (1, 0), (1, 1)):  # empty inputs
+                a, b = (
+                    assoc.from_triples_plain(*random_triples(torch, np, rng, (w,), 4, special, dtype), w, sr)
+                    if w else assoc.empty(0, sr, dtype, DEVICE)
+                    for w in (wa, wb)
+                )
+                for cap in (None, 3):
                     got = mops.merge_add(a, b, cap, sr)
                     want = assoc.add_plain(a, b, cap, sr)
-                    err = max(err, assoc_same(torch, got, want, f"merge_add {name} {tag}"))
+                    err = max(err, assoc_same(torch, got, want, f"merge_add widths {wa},{wb} {tag}"))
                     cases += 1
-                # an equal-key pair across every merge-path tile edge
-                for batch, cap in (((), None), ((2,), None), ((), 1_500_000)):
-                    a, b = paired_assocs(torch, np, rng, 1_000_000, batch, special, dtype, sr)
-                    got = mops.merge_add(a, b, cap, sr)
-                    want = assoc.add_plain(a, b, cap, sr)
-                    err = max(err, assoc_same(torch, got, want, f"merge_add pairs {batch} {cap} {tag}"))
-                    cases += 1
-                for wa, wb in ((0, 5), (5, 0), (0, 0), (1, 0), (1, 1)):  # empty inputs
-                    a, b = (
-                        assoc.from_triples_plain(*random_triples(torch, np, rng, (w,), 4, special, dtype), w, sr)
-                        if w else assoc.empty(0, sr, dtype, DEVICE)
-                        for w in (wa, wb)
-                    )
-                    for cap in (None, 3):
-                        got = mops.merge_add(a, b, cap, sr)
-                        want = assoc.add_plain(a, b, cap, sr)
-                        err = max(err, assoc_same(torch, got, want, f"merge_add widths {wa},{wb} {tag}"))
-                        cases += 1
-                torch.cuda.synchronize()
-                log(f"[parity-ops] {tag}: bit-identical")
+            torch.cuda.synchronize()
+            log(f"[parity-ops] {tag}: bit-identical")
     log(f"[parity-ops] merge_add and sort_dedup: {cases} cases bit-identical to their plain versions")
     return err
 
@@ -475,9 +488,7 @@ def sort_edge_cases(torch, np, rng, special, dtype):
     * groups with no live entry, one, a scattered ``valid`` (some live rows
       PAD) and a live prefix; a sort tile exactly full of live entries."""
     def values(n):
-        if special:
-            return special_values(torch, np, rng, (n,)).to(dtype)
-        return torch.tensor(rng.normal(size=n), dtype=torch.float32, device=DEVICE).to(dtype)
+        return make_values(torch, np, rng, (n,), special, dtype)
 
     def dev(x):
         return torch.tensor(x, dtype=torch.int32, device=DEVICE)
@@ -520,14 +531,10 @@ def paired_assocs(torch, np, rng, n, batch, special, dtype, sr):
     def make(idx):
         idx = torch.tensor(idx, dtype=torch.int64, device=DEVICE).expand(batch + (idx.size,))
         shape = idx.shape
-        if special:
-            v = special_values(torch, np, rng, shape)
-        else:
-            v = torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=DEVICE)
         return Assoc(
             rows=(idx // 4096).to(torch.int32).contiguous(),
             cols=(idx % 4096).to(torch.int32).contiguous(),
-            vals=v.to(dtype),
+            vals=make_values(torch, np, rng, shape, special, dtype),
             nnz=torch.full(batch, shape[-1], dtype=torch.int32, device=DEVICE),
             overflow=torch.zeros(batch, dtype=torch.bool, device=DEVICE),
         )
@@ -847,6 +854,62 @@ def phase_bf16_ingest(torch, np, data):
     return err
 
 
+VALUE_TYPE_STEPS = 40  # the float16 and int32 ingests, both engines
+# (engine, K, value type, semiring): int32 plus wraps (values anywhere in
+# the int32 range), int32 min.plus has the saturated zero INT32_MAX
+VALUE_TYPE_RUNS = (("cuda", K, "int32", "plus.times"), ("single", 1, "int32", "min.plus"),
+                   ("cuda", K, "float16", "plus.times"), ("single", 1, "float16", "max.plus"))
+
+
+def phase_value_types(torch, np, data):
+    """Short float16 and int32 ingests of both engines at full width, the
+    R-MAT keys with values of the type: through the kernels, then inside
+    ``plain_versions()``, bit-identical."""
+    from repro_torch import kernels
+    from repro_torch.configs.d4m_stream import CONFIG
+    from repro_torch.d4m import D4MStream
+
+    R, C, steps = data["R"], data["C"], VALUE_TYPE_STEPS
+    err, total = 0.0, {}
+    for engine, k, dt, srn in VALUE_TYPE_RUNS:
+        dtype = getattr(torch, dt)
+        V = make_values(torch, np, np.random.default_rng(steps + len(dt) + k), tuple(R[:steps].shape),
+                        False, dtype)
+        kw = dict(instances_per_device=k, top_capacity=TOP_CAPACITY) if k > 1 else {}
+        cfg = CONFIG.to_session(dtype=dt, semiring=srn, **kw)
+        states = {}
+        for mode in ("kernels", "plain"):
+            sess = D4MStream(cfg)
+            check(sess.kind == engine and sess.dtype == dtype, (sess.kind, sess.dtype))
+            sess.state
+            torch.cuda.synchronize()
+            zero_counts()
+            ctx = kernels.plain_versions() if mode == "plain" else contextlib.nullcontext()
+            with ctx:
+                for g in range(steps):
+                    sess.ingest(R[g], C[g], V[g])
+                torch.cuda.synchronize()
+            counts = read_counts()
+            states[mode] = sess.state
+            if mode == "kernels":
+                check(counts["sort_dedup"] >= steps and (counts["hier_cascade"] == steps if k > 1
+                      else counts["merge_add"] >= steps), counts)
+                for name, n in counts.items():
+                    total[name] = total.get(name, 0) + n
+            else:
+                check(sum(counts.values()) == 0, ("plain_versions() launched a kernel", counts))
+            del sess
+        tag = f"{engine} {dt} {srn}"
+        err = max(err, compare(torch, states["kernels"], states["plain"], f"{tag}: kernels vs plain"))
+        casc = states["kernels"].cascades.cpu()
+        check(int(casc[..., 1].sum()) > 0, (tag, "layer 1 -> 2 fired", casc))
+        log(f"[types] {tag}, {steps} groups: kernels == plain_versions() (bit-identical); "
+            f"cascades per layer {casc.reshape(-1, casc.shape[-1]).sum(0).tolist()}")
+        del states
+        gc.collect()
+    return err, total
+
+
 def phase_read_side(torch, np, sess, data):
     """The full-width K=8 snapshot and ``query.degrees`` through the
     kernels, then inside ``plain_versions()``: bit-identical."""
@@ -939,6 +1002,356 @@ def phase_single(torch, np, data):
     log(f"[single] snapshot + degrees + top_k {read_ms:.2f} ms, launches {read_counts()}")
     return sess, {"err": err, "rate": n_edges / wall, "launches": counts,
                   "cuda_launches_per_call": merge_cuda, "sort_cuda_launches_per_call": sort_cuda}
+
+
+SERVE_EVERY = 50  # checkpoint every 50 microbatches of 100,000 (the kill comes after the first)
+SERVE_PUBLISH = 4  # publish a view every 4 microbatches (50 views over the 200 groups)
+SINGLE_SERVE_STEPS = 60  # the single engine's serve, at reduced depth
+LOOPBACK = (8, (4096, 32768), 262_144, 4096, 40)  # K, cuts, top capacity, batch, batches
+
+
+def hist_ms(hist) -> dict:
+    """p50/p99/max of an obs histogram in ms (the percentiles are its
+    power-of-two bucket bounds, clamped to the observed max)."""
+    s = hist.summary()
+    return {"count": s["count"], **{k[:-3] + "_ms": s[k] / 1e6 for k in ("p50_ns", "p99_ns", "max_ns") if k in s}}
+
+
+def publish_spans(server) -> list:
+    """The publication times (ns) of one serve, oldest first: the spans its
+    trace holds, each also recorded in its ``serve.publish_ns`` histogram.
+    The first is the start view, published by ``start()`` before the
+    stream; the rest come at microbatch boundaries and at the drain."""
+    spans = [e["t1_ns"] - e["t0_ns"] for e in server.trace.events() if e["stage"] == "publish"]
+    n = server.metrics.histogram("serve.publish_ns").count
+    check(len(spans) == n == server.views_published, ("publish spans", len(spans), n, server.views_published))
+    return spans
+
+
+def publish_ms(*span_lists) -> dict:
+    """The start views' ms on their own, and the views published while
+    serving (every span after each serve's first) as an obs histogram."""
+    from repro_torch.obs import LatencyHistogram
+
+    steady = LatencyHistogram("serve.publish_ns")
+    for spans in span_lists:
+        for ns in spans[1:]:
+            steady.record(ns)
+    return {"start_ms": [spans[0] / 1e6 for spans in span_lists], **hist_ms(steady)}
+
+
+def serve_kill_restore(torch, np, cfg, rows, cols, vals, tag, queries=False):
+    """Serve ``rows/cols/vals`` (host arrays, in groups of ``batch_size``)
+    into a fresh session through ``ArraySource``, kill it with
+    ``stop(drain=False)`` after its first checkpoint, restore the
+    checkpoint into another fresh session and replay the tail from its
+    cursor.  Returns the restored session and what was measured."""
+    import shutil
+    import tempfile
+
+    from repro_torch import serve
+    from repro_torch.d4m import D4MStream, ServeConfig
+    from repro_torch.serve import wire
+
+    batch = cfg.batch_size
+    n = rows.shape[0]
+    ckpt = tempfile.mkdtemp(prefix="d4m-serve-ckpt-")
+    out = {}
+    try:
+        sess = D4MStream(cfg, checkpoint_dir=ckpt, checkpoint_keep=1)
+        sess.state
+        torch.cuda.synchronize()
+        scfg = ServeConfig(max_batch=batch, max_latency_ms=1e9, checkpoint_every=SERVE_EVERY,
+                           publish_every=SERVE_PUBLISH, track_degrees=False, metrics=True)
+        server = serve.D4MServer(sess, serve.ArraySource(rows, cols, vals, chunk_records=batch), scfg)
+        stall = []
+        save = sess.checkpoint
+
+        def timed_checkpoint(step, extra=None):  # the feed loop's host-copy stall
+            t = time.perf_counter()
+            save(step, extra)
+            stall.append(time.perf_counter() - t)
+
+        sess.checkpoint = timed_checkpoint
+        server.start()
+        executor = serve.QueryExecutor(sess, server=server) if queries else None
+        asked, deadline = 0, time.monotonic() + 300
+        while not server.checkpoints and time.monotonic() < deadline:
+            if executor is not None and sess.latest_view() is not None:
+                # the query plane at full width, while the stream runs
+                for op, args in (("degrees", {}), ("top_k", {"k": 10}), ("row", {"r": 0}),
+                                 ("get", {"r": 0, "c": 1})):
+                    rep = executor.execute(wire.QueryRequest(op=op, args=args, id=asked))
+                    check(rep.ok, (tag, op, rep.error))
+                    asked += 1
+            else:
+                time.sleep(0.005)
+        check(server.checkpoints, f"{tag}: no checkpoint within the deadline")
+        server.stop(drain=False, timeout=300)
+        killed = server.report()
+        check(not killed.drained and killed.records_fed < n, (tag, "the kill landed mid-stream"))
+        hists = server.metrics
+        spans = publish_spans(server)
+        out["queries"] = {op: hist_ms(hists.histogram(f"query.{op}.latency_ns"))
+                          for op in ("degrees", "top_k", "row", "get") if queries}
+        out["killed"] = {"records_fed": killed.records_fed, "wall_s": killed.wall_s,
+                         "rate": killed.ingest_rate, "views": server.views_published,
+                         "checkpoint_stall_s": stall}
+        del server, sess
+        gc.collect()
+
+        fresh = D4MStream(cfg, checkpoint_dir=ckpt, checkpoint_keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cursor = fresh.restore()["cursor"]
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        check(0 < cursor < n and cursor % batch == 0, (tag, "cursor", cursor))
+        server = serve.D4MServer(
+            fresh, serve.ArraySource(rows[cursor:], cols[cursor:], vals[cursor:], chunk_records=batch),
+            ServeConfig(max_batch=batch, max_latency_ms=1e9, publish_every=SERVE_PUBLISH,
+                        track_degrees=False, metrics=True),
+        )
+        replay = server.run(timeout=600)
+        out["publish"] = publish_ms(spans, publish_spans(server))
+        del server
+        check(replay.drained and replay.records_fed == n - cursor, (tag, "replay", replay.records_fed))
+        check(replay.records_dropped == 0 and replay.telemetry.routing_dropped == 0, (tag, "no drop"))
+        out["replay"] = {"cursor": cursor, "records_fed": replay.records_fed, "wall_s": replay.wall_s,
+                         "rate": replay.ingest_rate}
+        # one more generation, timed whole: host copies, then the write
+        t0 = time.perf_counter()
+        fresh.checkpoint(n // batch, extra={"cursor": n})
+        t1 = time.perf_counter()
+        fresh.wait_checkpoint()
+        t2 = time.perf_counter()
+        step_dir = Path(ckpt) / f"ckpt-{n // batch:09d}"
+        manifest = json.loads((step_dir / "manifest.json").read_text())
+        out["save_copy_s"], out["save_write_s"] = t1 - t0, t2 - t1
+        out["checkpoint_gb"] = manifest["arrays_bytes"] / 1e9
+        return fresh, out
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def serve_default(torch, np, cfg, rows, cols, vals, want):
+    """The whole stream served uninterrupted into a fresh session with
+    ``ServeConfig``'s defaults (``track_degrees=True``: the host degree
+    fold on the feed thread, its vectors lifted into each published view),
+    publishing every ``SERVE_PUBLISH`` microbatches.  The state equals the
+    library-mode session ``want``; the drain view's tracked degrees equal
+    host bincounts of the stream and a fresh reduction of its snapshot
+    under the plain versions."""
+    from repro_torch import kernels, serve
+    from repro_torch.core import analytics
+    from repro_torch.d4m import D4MStream, ServeConfig
+
+    n, batch = rows.shape[0], cfg.batch_size
+    sess = D4MStream(cfg)
+    sess.state
+    torch.cuda.synchronize()
+    scfg = ServeConfig(max_batch=batch, max_latency_ms=1e9, publish_every=SERVE_PUBLISH, metrics=True)
+    check(scfg.track_degrees, "the default ServeConfig tracks degrees")
+    server = serve.D4MServer(sess, serve.ArraySource(rows, cols, vals, chunk_records=batch), scfg)
+    check(server._tracker is not None, "the degree tracker is on")
+    zero_counts()
+    rep = server.run(timeout=600)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(rep.drained and rep.records_fed == n, ("default serve drain", rep.records_fed))
+    check(rep.records_dropped == 0 and rep.telemetry.routing_dropped == 0, "default serve: no drop")
+    check(launches["hier_cascade"] > 0 and launches["sort_dedup"] > 0 and launches["merge_add"] > 0, launches)
+    compare(torch, sess.state, want.state, "served (default ServeConfig) vs library-mode K=8")
+    check(sess.nnz() == want.nnz() and not sess.overflowed(), ("default serve nnz/overflow", sess.nnz()))
+    publish = publish_ms(publish_spans(server))
+    v = sess.latest_view()
+    check(v.records == n and v.seq == server.views_published, ("drain view", v.records, v.seq))
+    tracked = v.degrees()  # seeded by the tracker at publication
+    with kernels.plain_versions():
+        fresh = analytics.degrees(v.snap, cap=v.plan.snapshot_cap, sr=v.sr)
+    for name, ids, t, f in zip(("out", "in"), (rows, cols), tracked, fresh):
+        count = np.bincount(ids)
+        live = np.flatnonzero(count)
+        nz = int(t.nnz)
+        got_ids, got_vals = t.rows[:nz].cpu().numpy(), t.vals[:nz].cpu().numpy()
+        check(nz == live.size and np.array_equal(got_ids, live)
+              and np.array_equal(got_vals, count[live].astype(np.float32)), (name, "tracked degrees vs bincount"))
+        assoc_same(torch, t, f, f"tracked {name}-degrees vs a fresh plain reduction of the drain view")
+    m = {"rate": rep.ingest_rate, "wall_s": rep.wall_s, "views": server.views_published,
+         "publish": publish, "launches": launches}
+    del server, sess, v, tracked, fresh
+    log(f"[serve] cuda K=8, default ServeConfig (track_degrees=True), publish every {SERVE_PUBLISH}: "
+        f"{rep.records_fed:,} records at {m['rate']:,.0f} records/s (wall until drain {m['wall_s']:.3f} s), "
+        f"{m['views']} views, publish {publish}; launches {launches}; state == library-mode K=8 "
+        f"(bit-identical); drain view's tracked degrees == host bincounts == a fresh plain reduction")
+    return m
+
+
+def phase_serve(torch, np, data, want):
+    """``D4MStream.serve`` on the card: the full-width ``cuda`` engine (K=8,
+    ``CONFIG``, 3.82 GB) served the 200 R-MAT groups through
+    ``ArraySource``, killed after its first checkpoint, restored and
+    replayed to a state bit-identical to the library-mode session ``want``
+    (degrees not tracked, so full-width queries reduce each view on the
+    card); the whole stream served again with the default ``ServeConfig``
+    (degrees tracked on the host); the kill and replay at reduced depth for the ``single`` engine; and a loopback
+    ``TCPSource`` run whose ``QueryClient`` answers equal the views they
+    name."""
+    from repro_torch.configs.d4m_stream import CONFIG
+    from repro_torch.d4m import D4MStream
+
+    rows, cols, vals = (data[k].reshape(-1).cpu().numpy() for k in ("R", "C", "V"))
+    n, out = rows.shape[0], {}
+
+    # -- the cuda engine at full width ----------------------------------------
+    cfg = CONFIG.to_session(instances_per_device=K, top_capacity=TOP_CAPACITY,
+                            snapshot_cap=data["n_distinct"])
+    zero_counts()
+    t0 = time.perf_counter()
+    sess, m = serve_kill_restore(torch, np, cfg, rows, cols, vals, "serve", queries=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    check(sess.kind == "cuda", sess.kind)
+    check(launches["hier_cascade"] > 0 and launches["sort_dedup"] > 0 and launches["merge_add"] > 0,
+          ("the serve path launched every kernel of its path", launches))
+    err = compare(torch, sess.state, want.state, "served+restored+replayed vs library-mode K=8")
+    check(sess.nnz() == want.nnz() and not sess.overflowed(), ("serve nnz/overflow", sess.nnz()))
+    snap = sess.snapshot()
+    err = max(err, assoc_same(torch, snap, want.snapshot(), "served snapshot"))
+    check(int(snap.nnz) == data["n_distinct"], (int(snap.nnz), data["n_distinct"]))
+    out["cuda"] = dict(m, launches=launches, wall_s=wall)
+    gb = cfg.plan().total_bytes / 1e9
+    log(f"[serve] cuda K=8 ({gb:.2f} GB): killed after {m['killed']['records_fed']:,} records "
+        f"({m['killed']['rate']:,.0f} records/s to the kill, {m['killed']['views']} views, checkpoint "
+        f"host-copy stall {[round(x, 3) for x in m['killed']['checkpoint_stall_s']]} s); restored in "
+        f"{m['restore_s']:.3f} s; replayed {m['replay']['records_fed']:,} records from cursor "
+        f"{m['replay']['cursor']:,} at {m['replay']['rate']:,.0f} records/s (wall until drain "
+        f"{m['replay']['wall_s']:.3f} s); launches {launches}")
+    log(f"[serve] cuda checkpoint {m['checkpoint_gb']:.3f} GB (power-of-two widths): host copies "
+        f"{m['save_copy_s']:.3f} s + write {m['save_write_s']:.3f} s; publish {m['publish']}; "
+        f"queries {m['queries']}")
+    log("[serve] cuda: final state and snapshot == library-mode K=8 session (bit-identical), "
+        "no drop, no overflow")
+    del sess, snap
+    gc.collect()
+    out["cuda_default"] = serve_default(torch, np, cfg, rows, cols, vals, want)
+    gc.collect()
+
+    # -- the single engine, reduced depth ---------------------------------------
+    k1 = SINGLE_SERVE_STEPS * CONFIG.group_size
+    cfg1 = CONFIG.to_session()
+    ref = D4MStream(cfg1)
+    for g in range(SINGLE_SERVE_STEPS):
+        ref.ingest(data["R"][g], data["C"][g], data["V"][g])
+    zero_counts()
+    sess1, m1 = serve_kill_restore(torch, np, cfg1, rows[:k1], cols[:k1], vals[:k1], "serve-single")
+    torch.cuda.synchronize()
+    launches1 = read_counts()
+    check(launches1["merge_add"] > 0 and launches1["sort_dedup"] > 0, launches1)
+    err = max(err, compare(torch, sess1.state, ref.state, "single served vs library-mode"))
+    check(not sess1.overflowed(), "single serve: no overflow")
+    out["single"] = dict(m1, launches=launches1)
+    log(f"[serve] single K=1, {SINGLE_SERVE_STEPS} groups: killed after {m1['killed']['records_fed']:,}, "
+        f"restored in {m1['restore_s']:.3f} s, replay {m1['replay']['rate']:,.0f} records/s; "
+        f"checkpoint {m1['checkpoint_gb']:.3f} GB, copies {m1['save_copy_s']:.3f} s + write "
+        f"{m1['save_write_s']:.3f} s; launches {launches1}; state == library mode (bit-identical)")
+    del sess1, ref
+    gc.collect()
+
+    # -- loopback queries while streaming ------------------------------------------
+    zero_counts()
+    q = phase_loopback(torch, np, rows, cols, vals)
+    out["loopback"] = dict(q, launches=read_counts())
+    out["err"] = err
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_loopback(torch, np, rows, cols, vals):
+    """A small K=8 serve over a loopback ``TCPSource``: a ``QueryClient``
+    inserts batches and asks degrees, top-k, row and get on the same
+    connection while the stream runs; every answer equals the same op on
+    the published view whose sequence number it carries: degrees and
+    top-k (answered from the tracker's vectors seeded into the view) equal
+    a fresh reduction of the view's snapshot under the plain versions."""
+    import threading
+
+    from repro_torch import kernels, serve
+    from repro_torch.core import analytics
+    from repro_torch.d4m import D4MStream, ServeConfig, StreamConfig
+    from repro_torch.obs import summarize_state
+
+    k, cuts, top, batch, steps = LOOPBACK
+    sess = D4MStream(StreamConfig(cuts=cuts, top_capacity=top, batch_size=batch,
+                                  instances_per_device=k))
+    published, view = {}, sess.view
+
+    def recording_view(*a, **kw):
+        v = view(*a, **kw)
+        if kw.get("publish", True):
+            published[v.seq] = v
+        return v
+
+    sess.view = recording_view
+    src = serve.TCPSource(port=0, encoding="binary").start()
+    replies, errors = [], []
+    ops = (("degrees", {}), ("top_k", {"k": 10}), ("row", {"r": 0}), ("get", {"r": 0, "c": 1}))
+
+    def client():
+        try:
+            with serve.QueryClient("127.0.0.1", src.port, encoding="binary", timeout_s=60) as qc:
+                for t in range(steps):
+                    s = slice(t * batch, (t + 1) * batch)
+                    qc.insert(rows[s], cols[s], vals[s])
+                    for op, args in ops:
+                        replies.append((op, args, qc.request(op, **args)))
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    report = sess.serve(src, ServeConfig(max_latency_ms=1e9, publish_every=2, metrics=True), timeout=120)
+    th.join(timeout=60)
+    check(not th.is_alive() and not errors, ("loopback client", errors))
+    check(report.drained and report.records_fed == steps * batch, ("loopback drain", report.records_fed))
+    fresh = {}  # each view's degrees reduced anew, under the plain versions: the
+    # answers come from the tracker's vectors seeded into the view
+
+    def degrees(v):
+        if v.seq not in fresh:
+            with kernels.plain_versions():
+                fresh[v.seq] = analytics.degrees(v.snap, cap=v.plan.snapshot_cap, sr=v.sr)
+        return fresh[v.seq]
+
+    for op, args, rep in replies:
+        check(rep.ok, (op, rep.error))
+        v = published[rep.view_seq]
+        if op == "degrees":
+            for name, a in zip(("out", "in"), degrees(v)):
+                nz = int(a.nnz)
+                check(np.array_equal(rep.arrays[f"{name}_ids"], a.rows[:nz].cpu().numpy())
+                      and np.array_equal(rep.arrays[f"{name}_vals"], a.vals[:nz].cpu().numpy()), (op, rep.view_seq))
+        elif op == "top_k":
+            with kernels.plain_versions():
+                ids, counts = analytics.top_k_vertices(degrees(v)[0], args["k"])
+            check(np.array_equal(rep.arrays["ids"], ids.cpu().numpy())
+                  and np.array_equal(rep.arrays["vals"], counts.cpu().numpy()), (op, rep.view_seq))
+        elif op == "row":
+            a = v.row(args["r"])
+            nz = int(a.nnz)
+            check(np.array_equal(rep.arrays["cols"], a.cols[:nz].cpu().numpy())
+                  and np.array_equal(rep.arrays["vals"], a.vals[:nz].cpu().numpy()), (op, rep.view_seq))
+        else:
+            check(rep.scalars["value"] == float(v.get(args["r"], args["c"])), (op, rep.view_seq))
+    seqs = sorted({rep.view_seq for _, _, rep in replies})
+    lat = report.telemetry.histograms
+    query_ms = {op: {k[:-3] + "_ms": v / 1e6 for k, v in summarize_state(lat[f"query.{op}.latency_ns"]).items()
+                     if k.endswith("_ns")} for op, _ in ops}
+    log(f"[serve] loopback K={k}: {len(replies)} answers over {len(seqs)} views (seq {seqs[0]}..{seqs[-1]}) "
+        f"== the same ops on the views they name; {report.records_fed:,} records at "
+        f"{report.ingest_rate:,.0f} records/s; query ms {query_ms}")
+    return {"answers": len(replies), "views": len(seqs), "query_ms": query_ms, "rate": report.ingest_rate}
 
 
 def phase_algebra(torch, np, n_v=2**16, n_e=500_000, fanout=64):
@@ -1236,7 +1649,7 @@ def scatter_inputs(torch, np, rng, v, d, live, pads, row0, wrap, rows_dtype, tab
 
 def phase_parity_scatter(torch, np):
     """``scatter_add`` against its plain version on the card, bit for bit:
-    float32 and bfloat16 tables, each with float32 and bfloat16 rows; PAD
+    float32, bfloat16 and float16 tables, each with rows of each type; PAD
     tails with NaN in the PAD rows; -0.0 and NaN in the table and in live
     rows, row 0 live or dead, with PADs present or not (C10); negative ids
     (some onto rows a non-negative id adds to) and ids >= V; k = 0; d of 1,
@@ -1248,7 +1661,7 @@ def phase_parity_scatter(torch, np):
 
     rng = np.random.default_rng(1313)
     cases = 0
-    dts = (torch.float32, torch.bfloat16)
+    dts = (torch.float32, torch.bfloat16, torch.float16)
     for table_dtype in dts:
         for rows_dtype in dts:
             tag = f"table {str(table_dtype)[6:]}, rows {str(rows_dtype)[6:]}"
@@ -1504,7 +1917,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     name = torch.cuda.get_device_name(0)
-    log(f"[device] {name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    card = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(f"[device] {name}, torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
 
     phase_build()
     parity_err = phase_parity(torch, np)
@@ -1513,7 +1932,9 @@ def main() -> int:
     data = phase_data(torch, np)
     sess8, main_run = phase_main(torch, np, data)
     bf16_err = phase_bf16_ingest(torch, np, data)
+    types_err, types_launches = phase_value_types(torch, np, data)
     read = phase_read_side(torch, np, sess8, data)
+    served = phase_serve(torch, np, data, sess8)
     del sess8
     single_sess, single = phase_single(torch, np, data)
     times = phase_kernel_times(torch, np, data, main_run, single_sess)
@@ -1533,8 +1954,12 @@ def main() -> int:
     log(f"[embed] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     paths = {"cuda": main_run["launches"], "single": single["launches"], "read": read["launches"],
+             "serve": served["cuda"]["launches"], "serve_default": served["cuda_default"]["launches"],
+             "serve_single": served["single"]["launches"],
+             "serve_loopback": served["loopback"]["launches"], "value_types": types_launches,
              "algebra": algebra["launches"], "embed_grad": embed["launches"]}
-    err = max(ops_err, main_run["err"], read["err"], single["err"], algebra["err"])
+    err = max(ops_err, main_run["err"], read["err"], single["err"], algebra["err"], served["err"],
+              types_err)
 
     def launches(kernel):
         by_path = {p: c[kernel] for p, c in paths.items()}
@@ -1550,7 +1975,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/hier_cascade/kernel.py:168",
         "launches": launches("hier_cascade")[0],
         "launches_by_path": launches("hier_cascade")[1],
-        "max_abs_err": max(parity_err, main_run["err"], bf16_err),
+        "max_abs_err": max(parity_err, main_run["err"], bf16_err, types_err),
         "ms": main_run["ms"],
         "plain_ms": main_run["plain_ms"],
         "bound_ms": main_run["bound_ms"],
@@ -1560,6 +1985,7 @@ def main() -> int:
         "by_step_kind": main_run["kinds"],
         "cuda_launches_per_call": main_run["cuda_launches_per_call"],
         "scratch_bytes": main_run["scratch_bytes"],
+        "value_types": ["float32", "bfloat16", "float16", "int32"],
         "parity": "bit-identical",
     }, {
         "name": "merge_add",
@@ -1580,6 +2006,7 @@ def main() -> int:
         "cascade_merges": {k: v for k, v in times.items() if k.startswith("cascade merge")},
         "tail_bytes": {k: v["tail_bytes"] for k, v in times.items() if "tail_bytes" in v},
         "cuda_launches_per_call": single["cuda_launches_per_call"],
+        "value_types": ["float32", "bfloat16", "float16", "int32"],
         "parity": "bit-identical",
     }, {
         "name": "sort_dedup",
@@ -1602,6 +2029,7 @@ def main() -> int:
         "cuda_launches_per_call": {"cuda": main_run["sort_cuda_launches_per_call"],
                                    "single": single["sort_cuda_launches_per_call"]},
         "host_ms": {"[8, 100000]": sd8["host_ms"], "[100000]": sd1["host_ms"]},
+        "value_types": ["float32", "bfloat16", "float16", "int32"],
         "parity": "bit-identical",
     }, {
         "name": "scatter_add",
@@ -1617,17 +2045,39 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": scatter_times["library_ms"],
         "bytes": scatter_times["bytes"],
+        "value_types": ["float32", "bfloat16", "float16"],
         "parity": "bit-identical",
     }]
     log(f"[rates] cuda engine K=8 {main_run['rate']:,.0f} updates/s; single engine K=1 "
         f"{single['rate']:,.0f} updates/s; embedding window {embed['rate']:,.0f} updates/s "
         f"(plain_versions() {embed['plain_rate']:,.0f})")
+    sc = served["cuda"]
+    sd = served["cuda_default"]
+    log("[serve-metrics] " + json.dumps({
+        "card": card,
+        "publish_every": SERVE_PUBLISH,
+        "serve_rate_records_per_s": {"to_the_kill": sc["killed"]["rate"], "replay_until_drain": sc["replay"]["rate"],
+                                     "default_until_drain": sd["rate"],
+                                     "single_replay": served["single"]["replay"]["rate"],
+                                     "loopback": served["loopback"]["rate"]},
+        "replay_wall_s": sc["replay"]["wall_s"],
+        "default_wall_s": sd["wall_s"],
+        "publish_ms": {"untracked": sc["publish"], "default": sd["publish"]},
+        "query_ms_full_width": sc["queries"],
+        "query_ms_loopback": served["loopback"]["query_ms"],
+        "checkpoint": {"gb": sc["checkpoint_gb"], "host_copy_s": sc["save_copy_s"],
+                       "write_s": sc["save_write_s"], "restore_s": sc["restore_s"],
+                       "serve_stall_s": sc["killed"]["checkpoint_stall_s"]},
+        "checkpoint_single": {"gb": served["single"]["checkpoint_gb"],
+                              "host_copy_s": served["single"]["save_copy_s"],
+                              "write_s": served["single"]["save_write_s"],
+                              "restore_s": served["single"]["restore_s"]},
+        "launches": {"serve": sc["launches"], "serve_default": sd["launches"],
+                     "serve_single": served["single"]["launches"],
+                     "serve_loopback": served["loopback"]["launches"]},
+    }))
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
+    print(card, flush=True)
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},

@@ -83,7 +83,7 @@ def degrees_from_vectors(
         bucket = max(256, 1 << max(0, n - 1).bit_length())
         if bucket > n:
             ids = np.concatenate([ids, np.full(bucket - n, PAD, np.int32)])
-            vals = np.concatenate([vals, np.full(bucket - n, sr.zero, np.float64)])
+            vals = np.concatenate([vals, np.full(bucket - n, sr.zero_as(dtype), np.float64)])
         ids = torch.tensor(ids, device=device)
         vals = torch.tensor(vals, device=device).to(dtype)
         return assoc.from_triples(ids, torch.zeros_like(ids), vals, cap, sr=sr)
@@ -98,8 +98,8 @@ def undirected_view(a: Assoc, cap: int | None = None, sr: Semiring = PLUS_TIMES)
     sym = assoc.add(a, assoc.transpose(a, sr=sr), cap=cap, sr=sr)
     ones = torch.where(
         sym.rows != PAD,
-        torch.full_like(sym.vals, sr.one),
-        torch.full_like(sym.vals, sr.zero),
+        torch.full_like(sym.vals, sr.one_as(sym.vals.dtype)),
+        torch.full_like(sym.vals, sr.zero_as(sym.vals.dtype)),
     )
     return Assoc(sym.rows, sym.cols, ones, sym.nnz, sym.overflow)
 
@@ -150,8 +150,9 @@ def reachable_within(
 ) -> Assoc:
     """k-step reachability closure ``R_k = R_{k-1} (+) R_{k-1} A`` over
     ``{sr.zero, sr.one}``: reachable pairs hold ``sr.one``."""
+    dt = a.vals.dtype
     ones = torch.where(
-        a.rows != PAD, torch.full_like(a.vals, sr.one), torch.full_like(a.vals, sr.zero)
+        a.rows != PAD, torch.full_like(a.vals, sr.one_as(dt)), torch.full_like(a.vals, sr.zero_as(dt))
     )
     r = Assoc(a.rows, a.cols, ones, a.nnz, a.overflow)
     base = r

@@ -179,7 +179,7 @@ def empty(
     return Assoc(
         rows=_full(shape, PAD, torch.int32, device),
         cols=_full(shape, PAD, torch.int32, device),
-        vals=_full(shape, sr.zero, dtype, device),
+        vals=_full(shape, sr.zero_as(dtype), dtype, device),
         nnz=torch.zeros(tuple(batch), dtype=torch.int32, device=device),
         overflow=torch.zeros(tuple(batch), dtype=torch.bool, device=device),
     )
@@ -218,7 +218,7 @@ def from_triples_plain(
     if valid is not None:
         rows = torch.where(valid, rows, PAD)
         cols = torch.where(valid, cols, PAD)
-        vals = torch.where(valid, vals, torch.full_like(vals, sr.zero))
+        vals = torch.where(valid, vals, torch.full_like(vals, sr.zero_as(vals.dtype)))
     order = torch.sort(pack_keys(rows, cols), dim=-1, stable=True).indices
     return combine_sorted_plain(
         torch.gather(rows, -1, order),
@@ -422,7 +422,7 @@ def get(a: Assoc, r, c, sr: Semiring = PLUS_TIMES) -> torch.Tensor:
     rq, cq = torch.atleast_1d(r), torch.atleast_1d(c)
     idx = torch.clamp(lex_searchsorted(a.rows, a.cols, rq, cq), max=a.capacity - 1)
     hit = (a.rows[idx] == rq) & (a.cols[idx] == cq)
-    out = torch.where(hit, a.vals[idx], torch.full_like(a.vals[idx], sr.zero))
+    out = torch.where(hit, a.vals[idx], torch.full_like(a.vals[idx], sr.zero_as(a.vals.dtype)))
     return out[0] if scalar else out
 
 
@@ -431,7 +431,7 @@ def extract_row(a: Assoc, r, cap: int, sr: Semiring = PLUS_TIMES) -> Assoc:
     keep = a.rows == int(r)
     rows = torch.where(keep, a.rows, PAD)
     cols = torch.where(keep, a.cols, PAD)
-    vals = torch.where(keep, a.vals, torch.full_like(a.vals, sr.zero))
+    vals = torch.where(keep, a.vals, torch.full_like(a.vals, sr.zero_as(a.vals.dtype)))
     return _combine_sorted(rows, cols, vals, cap, sr)
 
 
@@ -452,7 +452,7 @@ def elem_mul(a: Assoc, b: Assoc, cap: int | None = None, sr: Semiring = PLUS_TIM
     b_cols = torch.gather(b.cols, -1, idx)
     b_vals = torch.gather(b.vals, -1, idx)
     hit = (b_rows == a.rows) & (b_cols == a.cols) & (a.rows != PAD)
-    vals = torch.where(hit, sr.mul(a.vals, b_vals), torch.full_like(a.vals, sr.zero))
+    vals = torch.where(hit, sr.mul(a.vals, b_vals), torch.full_like(a.vals, sr.zero_as(a.vals.dtype)))
     rows = torch.where(hit, a.rows, PAD)
     cols = torch.where(hit, a.cols, PAD)
     # a subset of A's order with PAD holes: runs of one, combine/compact
@@ -489,7 +489,7 @@ def matmul(a: Assoc, b: Assoc, cap: int, max_fanout: int, sr: Semiring = PLUS_TI
     prod_rows = torch.where(ok, at.cols.unsqueeze(-1), PAD)  # AT.col is A's row key
     prod_cols = torch.where(ok, take(b.cols), PAD)
     prod_vals = sr.mul(at.vals.unsqueeze(-1), take(b.vals))
-    prod_vals = torch.where(ok, prod_vals, torch.full_like(prod_vals, sr.zero))
+    prod_vals = torch.where(ok, prod_vals, torch.full_like(prod_vals, sr.zero_as(prod_vals.dtype)))
     out = from_triples(
         prod_rows.reshape(batch + (m * f,)),
         prod_cols.reshape(batch + (m * f,)),
@@ -504,7 +504,7 @@ def matmul(a: Assoc, b: Assoc, cap: int, max_fanout: int, sr: Semiring = PLUS_TI
 def to_dense(a: Assoc, nrows: int, ncols: int, sr: Semiring = PLUS_TIMES) -> torch.Tensor:
     """Materialize as dense (small arrays and tests only); keys outside the
     ``nrows x ncols`` box (PAD slots among them) drop."""
-    dense = torch.full((nrows, ncols), sr.zero, dtype=a.vals.dtype, device=a.vals.device)
+    dense = torch.full((nrows, ncols), sr.zero_as(a.vals.dtype), dtype=a.vals.dtype, device=a.vals.device)
     ok = (a.rows >= 0) & (a.rows < nrows) & (a.cols >= 0) & (a.cols < ncols)
     dense[a.rows[ok].long(), a.cols[ok].long()] = a.vals[ok]
     return dense

@@ -8,8 +8,9 @@ side's state has its converters in :mod:`repro_torch.sparse.convert`.
 
 Arrays are copied, so the port owns its buffers (its kernels update them
 in place).  bfloat16 arrays (numpy's ``ml_dtypes``
-type, as ``np.asarray`` of a JAX bfloat16 array gives them) travel by
-their bits.
+type, as ``np.asarray`` of a JAX bfloat16 array gives them, or their raw
+2-byte words, ``|V2``, as an npz checkpoint stores them) travel by their
+bits.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from .hierarchical import HierAssoc
 def _own(x, device, dtype=None) -> torch.Tensor:
     """An owned tensor copy of numpy ``x`` (bfloat16 by its bits)."""
     x = np.array(x, copy=True)
-    if x.dtype.name == "bfloat16":
+    if x.dtype.name == "bfloat16" or x.dtype == np.dtype("V2"):
         bits = torch.from_numpy(x.view(np.int16))
         return bits.view(torch.bfloat16).to(device)
     return torch.tensor(x, dtype=dtype, device=device)

@@ -69,7 +69,8 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, int(n - 1).bit_length())
 
 
-def _pad_tail(x: torch.Tensor, width: int, fill) -> torch.Tensor:
+def pad_tail(x: torch.Tensor, width: int, fill) -> torch.Tensor:
+    """``x`` grown along its last axis to ``width`` with ``fill``."""
     pad = width - x.shape[-1]
     if pad == 0:
         return x
@@ -86,9 +87,9 @@ def pad_layers_pow2(h: HierAssoc, sr: Semiring = PLUS_TIMES) -> HierAssoc:
         q = _next_pow2(l.capacity)
         layers.append(
             Assoc(
-                rows=_pad_tail(l.rows, q, assoc.PAD),
-                cols=_pad_tail(l.cols, q, assoc.PAD),
-                vals=_pad_tail(l.vals, q, sr.zero),
+                rows=pad_tail(l.rows, q, assoc.PAD),
+                cols=pad_tail(l.cols, q, assoc.PAD),
+                vals=pad_tail(l.vals, q, sr.zero_as(l.vals.dtype)),
                 nnz=l.nnz,
                 overflow=l.overflow,
             )

@@ -227,7 +227,7 @@ def scatter_to_slots(
     return (
         place(rows.to(torch.int32), PAD, torch.int32),
         place(cols.to(torch.int32), PAD, torch.int32),
-        place(vals, sr.zero, vals.dtype),
+        place(vals, sr.zero_as(vals.dtype), vals.dtype),
         dropped,
     )
 

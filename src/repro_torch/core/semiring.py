@@ -32,8 +32,35 @@ class Semiring:
     one: float
     fold: int
 
+    def zero_as(self, dtype: torch.dtype):
+        """``zero`` as a value of ``dtype`` (see :func:`as_value`)."""
+        return as_value(self.zero, dtype)
+
+    def one_as(self, dtype: torch.dtype):
+        """``one`` as a value of ``dtype`` (see :func:`as_value`)."""
+        return as_value(self.one, dtype)
+
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return f"Semiring({self.name})"
+
+
+def as_value(x: float, dtype: torch.dtype):
+    """``x`` as a value of ``dtype``, as the reference writes a semiring's
+    zero or one into an array of that type: unchanged for a float type; for
+    an integer type, XLA's float-to-integer conversion on the CPU, which
+    saturates (``-inf`` is the least value, ``inf`` the greatest) and takes
+    NaN to 0 (ROADMAP C15).  ``torch.full`` refuses the infinities and NaN
+    for an integer type."""
+    if dtype.is_floating_point:
+        return x
+    info = torch.iinfo(dtype)
+    if math.isnan(x):
+        return 0
+    if x <= info.min:
+        return info.min
+    if x >= info.max:
+        return info.max
+    return int(x)
 
 
 def _plus(x, y):

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel repro/kernels/hier_cascade/kernel.py:168
 // (hier_cascade_pallas; body _cascade_kernel, merge _merge_canonical) and
-// computes what it computes, bit for bit, in float32 and bfloat16:
+// computes what it computes, bit for bit, in float32, bfloat16, float16 and
+// int32:
 //   * layer 1 always merges the canonical batch (whose overflow the wrapper
 //     has already OR-ed into layer 1's flag);
 //   * layer i merges into layer i+1 only when nnz_i > cut_i, read after this
@@ -14,8 +15,8 @@
 //     nnz 0, overflow false), adds one to cascades[i+1] and sets
 //     overflow[i+1] |= overflow[i] | merge_overflow;
 //   * merges fold equal keys as sr.add(dst, src), dst on the left, round to
-//     the value type after each operation, add "+ 0.0" to every written
-//     value, and truncate to the layer's true capacity.
+//     the value type after each operation (an int32 fold stays integer),
+//     add "+ 0.0" to every written float value, and truncate to the layer's true capacity.
 //
 // What bounds it: bytes.  A step must read the live prefixes of the layers
 // it merges and of the batch, write the merged layers back and clear the
@@ -236,7 +237,8 @@ int launch(int n_instances, int n_layers, const void* b_rows,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (kernels/_launch.py DTYPE_CODES).  Scratch:
+// dtype: 0 float32, 1 bfloat16, 2 int32, 3 float16 (kernels/_launch.py
+// DTYPE_CODES).  Scratch:
 // out rows/cols/vals [K, out_stride] (out_stride >= every cap); with t >=
 // merge_tiles(cap[i] + the widest source of level i) for every level:
 // splits [K, t + 1] int2, counts [K, t] int32, offsets [K, t] int64,
@@ -257,21 +259,13 @@ extern "C" int hier_cascade_step(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch<float>(n_instances, n_layers, b_rows, b_cols, b_vals, b_nnz,
-                         b_width, rows, cols, vals, widths, caps, cuts, nnz,
-                         casc, ov, out_rows, out_cols, out_vals, out_stride,
-                         splits, counts, offsets, rec, done, tiles, fold,
-                         zero_bits, sm_count, launches, st);
-  }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(
+  return d4m::by_value_type(dtype, [&](auto tag) {
+    return launch<decltype(tag)>(
         n_instances, n_layers, b_rows, b_cols, b_vals, b_nnz, b_width, rows,
         cols, vals, widths, caps, cuts, nnz, casc, ov, out_rows, out_cols,
         out_vals, out_stride, splits, counts, offsets, rec, done, tiles, fold,
         zero_bits, sm_count, launches, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 extern "C" const char* hier_cascade_error_string(int err) {

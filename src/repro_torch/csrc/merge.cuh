@@ -11,10 +11,15 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cub/block/block_scan.cuh>
+
+#include "value_types.cuh"
 
 namespace d4m {
 
@@ -43,9 +48,11 @@ __device__ __forceinline__ float fold_add(int fold, float dst, float src) {
   }
 }
 
-// Value types the kernels take (float32 and bfloat16): every fold runs in
-// float32 and rounds back to the value type after each operation, as a
-// PyTorch elementwise op on the value type does.
+// Value types the kernels take: float32, bfloat16, float16 and int32.  A
+// float fold runs in float32 and rounds back to the value type after each
+// operation, as a PyTorch elementwise op on the value type does.  An int32
+// fold never goes through float: plus wraps (two's complement, as XLA's and
+// PyTorch's int32 add), max and min compare as integers.
 template <typename T>
 struct Value;
 
@@ -71,18 +78,57 @@ struct Value<__nv_bfloat16> {
   }
 };
 
+template <>
+struct Value<__half> {
+  static __device__ __forceinline__ float to_float(__half x) {
+    return __half2float(x);
+  }
+  static __device__ __forceinline__ __half from_float(float x) {
+    return __float2half_rn(x);
+  }
+  static __device__ __forceinline__ __half from_bits(uint32_t b) {
+    return __ushort_as_half(static_cast<unsigned short>(b));
+  }
+};
+
+template <>
+struct Value<int32_t> {
+  static __device__ __forceinline__ int32_t from_bits(uint32_t b) {
+    return static_cast<int32_t>(b);
+  }
+};
+
 // sr.add(dst, src) on the value type
 template <typename T>
 __device__ __forceinline__ T fold_value(int fold, T dst, T src) {
-  return Value<T>::from_float(
-      fold_add(fold, Value<T>::to_float(dst), Value<T>::to_float(src)));
+  if constexpr (std::is_same_v<T, int32_t>) {
+    switch (fold) {
+      case kFoldPlus:
+        return static_cast<int32_t>(static_cast<uint32_t>(dst) +
+                                    static_cast<uint32_t>(src));
+      case kFoldMax:
+        return dst > src ? dst : src;
+      case kFoldMin:
+        return dst < src ? dst : src;
+      default:  // kFoldFirst
+        return dst;
+    }
+  } else {
+    return Value<T>::from_float(
+        fold_add(fold, Value<T>::to_float(dst), Value<T>::to_float(src)));
+  }
 }
 
-// "+ 0.0": what the reference's scan interleave does to every value it
-// writes (-0.0 becomes +0.0, a NaN becomes the canonical NaN)
+// "+ 0.0": what the reference's scan interleave does to every float value
+// it writes (-0.0 becomes +0.0, a NaN becomes the canonical NaN); integers
+// take no "+ 0.0"
 template <typename T>
 __device__ __forceinline__ T plus_zero(T x) {
-  return Value<T>::from_float(Value<T>::to_float(x) + 0.0f);
+  if constexpr (std::is_same_v<T, int32_t>) {
+    return x;
+  } else {
+    return Value<T>::from_float(Value<T>::to_float(x) + 0.0f);
+  }
 }
 
 // Key fields of a packed key (the inverse of pack_key).

@@ -137,7 +137,7 @@ int merge_add_typed(int64_t groups, const void* ar, const void* ac,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Scratch, with tiles = t >=
+// dtype: 0 float32, 1 bfloat16, 2 int32, 3 float16.  Scratch, with tiles = t >=
 // merge_tiles(m + n): splits [G, t + 1] int2, counts [G, t] int32, offsets
 // [G, t] int64, done [G] int32 zeroed (the count pass leaves it zeroed
 // again).  *launches is set to the kernel launches made.
@@ -156,20 +156,12 @@ extern "C" int merge_add_run(int dtype, int64_t groups, const void* ar,
       d4m::merge_tiles(m + n) > tiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) {
-    return merge_add_typed<float>(groups, ar, ac, av, a_nnz, a_ov, m, br, bc,
-                                  bv, b_nnz, b_ov, n, orow, ocol, oval, o_nnz,
-                                  o_ov, cap, splits, counts, offsets, done,
-                                  tiles, fold, zero_bits, sm_count, launches,
-                                  stream);
-  }
-  if (dtype == 1) {
-    return merge_add_typed<__nv_bfloat16>(
+  return d4m::by_value_type(dtype, [&](auto tag) {
+    return merge_add_typed<decltype(tag)>(
         groups, ar, ac, av, a_nnz, a_ov, m, br, bc, bv, b_nnz, b_ov, n, orow,
         ocol, oval, o_nnz, o_ov, cap, splits, counts, offsets, done, tiles,
         fold, zero_bits, sm_count, launches, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 extern "C" const char* merge_add_error_string(int err) {

@@ -7,8 +7,8 @@
 // (scatter_add_ref, `table.at[where(live, ids, 0)].add(where(live, rows,
 // 0).astype(table.dtype))`), computes, bit for bit:
 //   * each row is cast to the table's type first, then added in that type
-//     (float32 arithmetic rounded to bfloat16 for a bfloat16 table: two
-//     roundings for float32 rows, as the oracle's astype-then-add);
+//     (float32 arithmetic rounded to bfloat16 or float16 for such a table:
+//     two roundings for float32 rows, as the oracle's astype-then-add);
 //   * a negative live id wraps to nrows + id; a live id still outside
 //     [0, nrows) is dropped (what `.at[]` does);
 //   * PAD slots (2^31 - 1) send "+ 0.0" to row 0: whenever ids hold a PAD,
@@ -35,9 +35,12 @@
 // 8 B for a bfloat16 table with float32 rows), plus the ids.  It does one
 // add per value.  Dead slots cost a read of their id.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "value_types.cuh"
 
 namespace {
 
@@ -50,6 +53,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -60,6 +64,10 @@ __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // t + cast<T>(r), in T
@@ -186,9 +194,10 @@ cudaError_t launch(const void* ids, const void* rows, void* table, int64_t k,
 
 }  // namespace
 
-// table_dtype, rows_dtype: 0 float32, 1 bfloat16.  ids int32[k], rows
-// [k, d], table [nrows, d], all contiguous on the stream's device; vectors
-// asks for the 16-byte path (d % 8 == 0, rows and table 16-byte aligned).
+// table_dtype, rows_dtype: 0 float32, 1 bfloat16, 3 float16.  ids int32[k],
+// rows [k, d], table [nrows, d], all contiguous on the stream's device;
+// vectors asks for the 16-byte path (d % 8 == 0, rows and table 16-byte
+// aligned).
 extern "C" int scatter_add_run(int table_dtype, int rows_dtype,
                                const void* ids, const void* rows, void* table,
                                int64_t k, int64_t nrows, int64_t d,
@@ -208,19 +217,12 @@ extern "C" int scatter_add_run(int table_dtype, int rows_dtype,
   const int64_t grid = k < most ? k : most;
   auto s = static_cast<cudaStream_t>(stream);
   const bool v = vectors != 0;
-  if (table_dtype == 0 && rows_dtype == 0) {
-    err = launch<float, float>(ids, rows, table, k, nrows, d, v, grid, s);
-  } else if (table_dtype == 0 && rows_dtype == 1) {
-    err = launch<float, __nv_bfloat16>(ids, rows, table, k, nrows, d, v, grid, s);
-  } else if (table_dtype == 1 && rows_dtype == 0) {
-    err = launch<__nv_bfloat16, float>(ids, rows, table, k, nrows, d, v, grid, s);
-  } else if (table_dtype == 1 && rows_dtype == 1) {
-    err = launch<__nv_bfloat16, __nv_bfloat16>(ids, rows, table, k, nrows, d,
-                                               v, grid, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return d4m::by_float_type(table_dtype, [&](auto t) {
+    return d4m::by_float_type(rows_dtype, [&](auto r) {
+      return static_cast<int>(launch<decltype(t), decltype(r)>(
+          ids, rows, table, k, nrows, d, v, grid, s));
+    });
+  });
 }
 
 extern "C" const char* scatter_add_error_string(int err) {

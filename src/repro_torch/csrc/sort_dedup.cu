@@ -145,7 +145,8 @@ cudaError_t launch_kernel(void (*kernel)(Params...), int64_t blocks, int threads
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The bits of value q of a float32 (value_bytes 4) or bfloat16 (2) array,
+// The bits of value q of a 4-byte (float32, int32) or 2-byte (bfloat16,
+// float16) value array,
 // as the 4-byte payload the sort carries with each key.
 __device__ __forceinline__ uint32_t value_bits(const void* vals, int value_bytes,
                                                int64_t q) {
@@ -165,6 +166,16 @@ template <>
 struct Bits<__nv_bfloat16> {
   using Word = uint16_t;
   static __device__ __nv_bfloat16 from(Word w) { return __ushort_as_bfloat16(w); }
+};
+template <>
+struct Bits<__half> {
+  using Word = uint16_t;
+  static __device__ __half from(Word w) { return __ushort_as_half(w); }
+};
+template <>
+struct Bits<int32_t> {
+  using Word = uint32_t;
+  static __device__ int32_t from(Word w) { return static_cast<int32_t>(w); }
 };
 
 // ---------------------------------------------------------------- the sort
@@ -400,8 +411,12 @@ struct FoldShared {
 };
 
 __device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ int32_t load_cg(const int32_t* p) { return __ldcg(p); }
 __device__ __forceinline__ __nv_bfloat16 load_cg(const __nv_bfloat16* p) {
   return __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+__device__ __forceinline__ __half load_cg(const __half* p) {
+  return __ushort_as_half(__ldcg(reinterpret_cast<const unsigned short*>(p)));
 }
 
 // out[i] = p[i] for the kTileItems elements from p, in 16-byte vectors
@@ -965,9 +980,7 @@ int dispatch(int dtype, const Call& c) {
   if (c.groups < 1 || c.n < 0 || c.cap < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) return run<float>(c);
-  if (dtype == 1) return run<__nv_bfloat16>(c);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return d4m::by_value_type(dtype, [&](auto tag) { return run<decltype(tag)>(c); });
 }
 
 }  // namespace
@@ -983,7 +996,8 @@ extern "C" int sort_dedup_workspace(int64_t groups, int64_t n, int sorting,
   return 0;
 }
 
-// dtype: 0 float32, 1 bfloat16.  valid: [G, n] bool or null.  work, zeroed:
+// dtype: 0 float32, 1 bfloat16, 2 int32, 3 float16.  valid: [G, n] bool or
+// null.  work, zeroed:
 // sort_dedup_workspace's sizes for (groups, n, 1).  *launches grows by the
 // CUDA launches made.
 extern "C" int sort_dedup_from_triples(

@@ -29,10 +29,11 @@ from repro_torch.core.semiring import (  # noqa: F401  (re-exported registry)
 )
 
 from .algebra import OpPolicy, cap_policy, current_policy
-from .config import CapacityPlan, StreamConfig
+from .config import CapacityPlan, ServeConfig, StreamConfig
 from .session import (
     D4MStream,
     QueryNamespace,
+    StreamView,
     build_update_step,
     scan_ingest,
     scan_ingest_and_snapshot,
@@ -48,7 +49,9 @@ __all__ = [
     "OpPolicy",
     "QueryNamespace",
     "Semiring",
+    "ServeConfig",
     "StreamConfig",
+    "StreamView",
     "build_update_step",
     "cap_policy",
     "current_policy",

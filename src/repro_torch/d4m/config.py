@@ -1,11 +1,13 @@
 """Validated configuration + capacity planning for a D4M streaming session
-(port of ``repro.d4m.config``: ``StreamConfig``, ``CapacityPlan``, ``plan``).
+(port of ``repro.d4m.config``: ``ServeConfig``, ``StreamConfig``,
+``CapacityPlan``, ``plan``).
 
-:meth:`StreamConfig.from_dict` takes the reference's wire form unchanged.
-The reference's ``engine="pallas"`` (its TPU kernel engine) names the port's
-kernel engine, ``"cuda"``.  ``ServeConfig`` and the ``mesh`` engine are not
-ported yet: a ``serve=`` other than ``None`` and a resolved ``mesh`` engine
-raise ``NotImplementedError``.
+The wire form is the reference's, both ways: :meth:`StreamConfig.from_dict`
+takes the reference's dict unchanged, and :meth:`StreamConfig.to_dict`
+writes one the reference reads.  The reference's ``engine="pallas"`` (its
+TPU kernel engine) names the port's kernel engine, ``"cuda"``: ``from_dict``
+maps it there and ``to_dict`` writes it back.  The ``mesh`` engine is not
+ported yet: a resolved ``mesh`` engine raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,131 @@ ENGINES = ("auto", "single", "packed", "cuda", "mesh")
 
 #: the reference's engine names that mean a port engine of another name
 ENGINE_ALIASES = {"pallas": "cuda"}
+#: the port's engine names that the reference's wire form spells otherwise
+WIRE_ENGINES = {v: k for k, v in ENGINE_ALIASES.items()}
+
+BACKPRESSURE_POLICIES = ("block", "drop")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Knobs of the streaming ingress loop (:mod:`repro_torch.serve`); the
+    reference's fields, defaults, checks and wire form.
+
+    * ``max_batch``: records per global microbatch (``None``: the session's
+      ``batch_size``, which it must not exceed);
+    * ``max_latency_ms``: a partial microbatch flushes (PAD-padded) once its
+      oldest record has waited this long;
+    * ``queue_depth`` / ``backpressure``: the routed-batch queue between the
+      batching thread and the feed loop holds ``queue_depth`` batches; when
+      full, ``"block"`` stalls the producer (lossless) and ``"drop"``
+      discards the newest batch and counts its records;
+    * ``checkpoint_every``: checkpoint every N fed microbatches (needs the
+      session's ``checkpoint_dir`` and ``backpressure="block"``: the saved
+      cursor claims the fed records are an exact prefix of the source);
+    * ``poll_interval_s``: the feed loop's queue poll and stale-flush cadence;
+    * ``drain_timeout_s``: bound on the graceful drain at shutdown;
+    * ``publish_every``: publish an immutable
+      :class:`~repro_torch.d4m.session.StreamView` every N fed microbatches
+      (``None``: no query plane); ``publish_cap`` its snapshot capacity;
+    * ``track_degrees``: keep degree vectors on the host per fed microbatch
+      and seed each published view with them;
+    * ``faults``: a :class:`repro_torch.faults.FaultPlan` (chaos tests), else
+      the ``REPRO_FAULTS`` environment variable;
+    * ``metrics``: ``True``/``False`` arms or disarms the serve loop's
+      :class:`~repro_torch.obs.MetricsRegistry`; ``None`` reads ``REPRO_OBS``;
+    * ``profile_dir``: when set, the feed loop runs under
+      :func:`repro_torch.obs.torch_profile` and writes its trace there.
+    """
+
+    max_batch: int | None = None
+    max_latency_ms: float = 50.0
+    queue_depth: int = 8
+    backpressure: str = "block"
+    checkpoint_every: int | None = None
+    poll_interval_s: float = 0.005
+    drain_timeout_s: float = 60.0
+    publish_every: int | None = None
+    publish_cap: int | None = None
+    track_degrees: bool = True
+    faults: Any = None  # Optional[repro_torch.faults.FaultPlan]
+    metrics: bool | None = None
+    profile_dir: str | None = None
+
+    def validate(self) -> "ServeConfig":
+        if self.max_batch is not None and self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        if self.max_latency_ms <= 0:
+            raise ValueError(f"max_latency_ms must be positive, got {self.max_latency_ms}")
+        if self.queue_depth < 1:
+            raise ValueError(f"queue_depth must be >= 1, got {self.queue_depth}")
+        if self.backpressure not in BACKPRESSURE_POLICIES:
+            raise ValueError(
+                f"backpressure must be one of {BACKPRESSURE_POLICIES}, got {self.backpressure!r}"
+            )
+        if self.checkpoint_every is not None and self.checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got {self.checkpoint_every}")
+        if self.checkpoint_every is not None and self.backpressure != "block":
+            raise ValueError(
+                "checkpoint_every requires backpressure='block': the saved "
+                "cursor assumes fed records are an exact prefix of the "
+                "source stream, which the 'drop' policy breaks (a restore "
+                "would double-feed the post-drop tail and never replay the "
+                "dropped batches)"
+            )
+        if self.publish_every is not None and self.publish_every < 1:
+            raise ValueError(f"publish_every must be >= 1, got {self.publish_every}")
+        if self.publish_cap is not None and self.publish_cap < 1:
+            raise ValueError(f"publish_cap must be >= 1, got {self.publish_cap}")
+        if self.publish_cap is not None and self.publish_every is None:
+            raise ValueError(
+                "publish_cap is set but publish_every is None — views are "
+                "never published; set publish_every to enable the query plane"
+            )
+        if self.poll_interval_s <= 0:
+            raise ValueError(f"poll_interval_s must be positive, got {self.poll_interval_s}")
+        if self.drain_timeout_s <= 0:
+            raise ValueError(f"drain_timeout_s must be positive, got {self.drain_timeout_s}")
+        if self.faults is not None:
+            from repro_torch.faults import FaultPlan
+
+            if not isinstance(self.faults, FaultPlan):
+                raise ValueError(
+                    f"faults must be a repro_torch.faults.FaultPlan or None, "
+                    f"got {type(self.faults).__name__}"
+                )
+        if self.metrics is not None and not isinstance(self.metrics, bool):
+            raise ValueError(f"metrics must be True, False, or None, got {self.metrics!r}")
+        if self.profile_dir is not None and not isinstance(self.profile_dir, str):
+            raise ValueError(
+                f"profile_dir must be a string path or None, got {type(self.profile_dir).__name__}"
+            )
+        return self
+
+    def to_dict(self) -> dict:
+        """JSON-ready dict; inverse of :meth:`from_dict`.  A fault plan
+        travels as its spec list (a rebuilt plan starts with fresh
+        counters)."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if f.name == "faults" and v is not None:
+                v = v.to_dict()
+            out[f.name] = v
+        return out
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ServeConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown ServeConfig keys {sorted(unknown)}")
+        d = dict(d)
+        if d.get("faults") is not None and not hasattr(d["faults"], "fire"):
+            from repro_torch.faults import FaultPlan
+
+            d["faults"] = FaultPlan.from_dict(d["faults"])
+        return cls(**d).validate()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +172,7 @@ class StreamConfig:
     snapshot_cap: int | None = None
     max_fanout: int = 32
     seed: int = 0
-    serve: Any = None
+    serve: ServeConfig | None = None
 
     def __post_init__(self):
         engine = ENGINE_ALIASES.get(self.engine, self.engine)
@@ -112,14 +239,22 @@ class StreamConfig:
         if self.max_fanout < 1:
             raise ValueError(f"max_fanout must be >= 1, got {self.max_fanout}")
         if self.serve is not None:
-            raise NotImplementedError("ServeConfig (serve=) is not ported yet")
+            self.serve.validate()
+            if self.serve.max_batch is not None and self.serve.max_batch > self.batch_size:
+                raise ValueError(
+                    f"serve.max_batch ({self.serve.max_batch}) must not exceed "
+                    f"batch_size ({self.batch_size}): the per-instance routing "
+                    f"slot capacity is batch_size, so larger global microbatches "
+                    f"could overflow a hash-skewed instance"
+                )
         self.sr  # raises KeyError on an unknown semiring name
         self.torch_dtype
         return self
 
     # -- wire form -----------------------------------------------------------
     def to_dict(self) -> dict:
-        """JSON-ready dict; inverse of :meth:`from_dict`."""
+        """JSON-ready dict in the reference's wire form (the kernel engine
+        as ``"pallas"``); inverse of :meth:`from_dict`."""
         out = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
@@ -127,6 +262,10 @@ class StreamConfig:
                 v = v.name if isinstance(v, Semiring) else v
             elif f.name == "dtype":
                 v = str(self.torch_dtype).removeprefix("torch.")
+            elif f.name == "engine":
+                v = WIRE_ENGINES.get(v, v)
+            elif f.name == "serve" and v is not None:
+                v = v.to_dict()
             elif isinstance(v, tuple):
                 v = list(v)
             out[f.name] = v
@@ -142,6 +281,8 @@ class StreamConfig:
         kw = dict(d)
         if kw.get("cuts") is not None:
             kw["cuts"] = tuple(int(c) for c in kw["cuts"])
+        if kw.get("serve") is not None:
+            kw["serve"] = ServeConfig.from_dict(kw["serve"])
         return cls(**kw).validate()
 
     def resolved_engine(self, device: str | torch.device = "cuda") -> str:

@@ -16,9 +16,21 @@ The session runs on the card unless it is given ``device="cpu"``.  The
 engines update the state eagerly; ``update`` consumes the previous state
 as the reference's donated step does (the ``cuda`` engine writes its layer
 buffers in place).
+
+The read side is the reference's query plane: :meth:`D4MStream.view`
+materializes an owned, immutable :class:`StreamView` (a snapshot computed
+into fresh tensors, with a CUDA event recorded behind it on the card), and
+:attr:`D4MStream.query` answers over the latest published view while a
+serve loop runs, else over a lazily built view of the live state.
+Checkpoints (:meth:`D4MStream.checkpoint`, :meth:`D4MStream.restore`) use
+the reference's on-disk format and leaf names, so either package restores
+the other's.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
+import warnings
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,7 +44,7 @@ from repro_torch.core.telemetry import TelemetrySnapshot
 from repro_torch.device import resolve_device
 from repro_torch.kernels.hier_cascade import ops as cascade_ops
 
-from .config import CapacityPlan, StreamConfig
+from .config import CapacityPlan, ServeConfig, StreamConfig
 
 
 # ---------------------------------------------------------------------------
@@ -115,65 +127,179 @@ def scan_ingest_and_snapshot(
 # the read side
 # ---------------------------------------------------------------------------
 
-class QueryNamespace:
-    """Bound analytics over the session's current snapshot, with capacity
-    arguments filled from the session's :class:`CapacityPlan`."""
+@dataclasses.dataclass(frozen=True)
+class StreamView:
+    """One immutable, owned read view of a streaming session: the query
+    plane's unit of snapshot isolation.
 
-    def __init__(self, session: "D4MStream"):
-        self._s = session
+    ``snap`` holds fresh tensors computed by the snapshot (never the engine
+    state the next update overwrites), so a view stays valid across any
+    number of later updates, restores or resets.  On the card ``ready`` is a
+    CUDA event recorded behind the snapshot's work on the publishing
+    thread's stream; every query first makes its own stream wait for it
+    (and, on another stream than the publisher's, marks the view's tensors
+    as used there, so the allocator keeps them until that work is done).
+
+    * ``seq``: publication sequence number (monotone per session);
+    * ``records``: source records folded in, when the publisher knows it
+      (the serve loop's ``records_fed``), else ``None``;
+    * ``nnz`` / ``overflowed``: state counters at publication.
+
+    Degree vectors are cached per capacity on first use, and pre-seeded by
+    the serve loop's :class:`~repro_torch.serve.query.DegreeTracker`.
+    """
+
+    snap: Assoc
+    sr: Semiring
+    plan: CapacityPlan
+    engine: str
+    seq: int
+    records: Optional[int] = None
+    published_at: float = 0.0
+    nnz: Optional[int] = None
+    overflowed: Optional[bool] = None
+    ready: Any = dataclasses.field(default=None, repr=False, compare=False)
+    _stream: Any = dataclasses.field(default=None, repr=False, compare=False)
+    _degree_cache: Dict[int, Tuple[Assoc, Assoc]] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False
+    )
+
+    def _cap(self, cap: int | None) -> int:
+        return int(cap) if cap is not None else self.plan.snapshot_cap
+
+    def _sync(self) -> Assoc:
+        """The snapshot, ordered after its publication on this thread's
+        stream."""
+        if self.ready is not None:
+            here = torch.cuda.current_stream(self.snap.rows.device)
+            here.wait_event(self.ready)
+            if here != self._stream:
+                for t in (self.snap.rows, self.snap.cols, self.snap.vals,
+                          self.snap.nnz, self.snap.overflow):
+                    t.record_stream(here)
+        return self.snap
 
     def degrees(self, cap: int | None = None) -> Tuple[Assoc, Assoc]:
-        """(out_degree, in_degree) keyed ``(vertex, 0)``, cached until the
-        next update."""
-        s = self._s
+        """(out_degree, in_degree) keyed ``(vertex, 0)``, folded with the
+        view semiring's add; cached per capacity."""
         cap = self._cap(cap)
-        if cap not in s._degree_cache:
-            s._degree_cache[cap] = analytics.degrees(s.snapshot(), cap=cap, sr=s.sr)
-        return s._degree_cache[cap]
+        if cap not in self._degree_cache:
+            self._degree_cache[cap] = analytics.degrees(self._sync(), cap=cap, sr=self.sr)
+        return self._degree_cache[cap]
 
     def top_k(self, k: int = 10, by: str = "out") -> Tuple[torch.Tensor, torch.Tensor]:
         """Heaviest-k vertices by out/in degree: ``(ids [k], counts [k])``."""
         out_deg, in_deg = self.degrees()
         return analytics.top_k_vertices(out_deg if by == "out" else in_deg, k)
 
-    def _cap(self, cap: int | None) -> int:
-        return int(cap) if cap is not None else self._s.plan.snapshot_cap
-
     def triangles(self, cap_sq: int | None = None, max_fanout: int | None = None) -> torch.Tensor:
         """Triangle count of the undirected support (tr(A^3)/6), over the
-        boolean support under plus.times whatever the session's semiring."""
-        s = self._s
-        und = analytics.undirected_view(s.snapshot(), cap=2 * s.plan.snapshot_cap, sr=PLUS_TIMES)
+        boolean support under plus.times whatever the view's semiring."""
+        und = analytics.undirected_view(self._sync(), cap=2 * self.plan.snapshot_cap, sr=PLUS_TIMES)
         return analytics.triangle_count(
             und,
-            cap_sq=cap_sq if cap_sq is not None else 4 * s.plan.snapshot_cap,
-            max_fanout=max_fanout if max_fanout is not None else s.plan.max_fanout,
+            cap_sq=cap_sq if cap_sq is not None else 4 * self.plan.snapshot_cap,
+            max_fanout=max_fanout if max_fanout is not None else self.plan.max_fanout,
         )
 
     def common_neighbors(self, u: int, v: int, cap: int | None = None) -> torch.Tensor:
-        return analytics.common_neighbors(self._s.snapshot(), u, v, cap=self._cap(cap))
+        return analytics.common_neighbors(self._sync(), u, v, cap=self._cap(cap))
 
     def jaccard(self, u: int, v: int, cap: int | None = None) -> torch.Tensor:
-        return analytics.jaccard(self._s.snapshot(), u, v, cap=self._cap(cap))
+        return analytics.jaccard(self._sync(), u, v, cap=self._cap(cap))
 
     def reachable_within(
         self, steps: int, cap: int | None = None, max_fanout: int | None = None
     ) -> Assoc:
         return analytics.reachable_within(
-            self._s.snapshot(),
+            self._sync(),
             steps,
             cap=self._cap(cap),
-            max_fanout=max_fanout if max_fanout is not None else self._s.plan.max_fanout,
+            max_fanout=max_fanout if max_fanout is not None else self.plan.max_fanout,
         )
 
     def row(self, r: int, cap: int | None = None) -> Assoc:
         """Row slice ``A(r, :)``."""
-        s = self._s
-        return assoc.extract_row(s.snapshot(), r, cap=self._cap(cap), sr=s.sr)
+        return assoc.extract_row(self._sync(), r, cap=self._cap(cap), sr=self.sr)
 
     def get(self, r, c) -> torch.Tensor:
         """Point query ``A(r, c)``."""
-        return assoc.get(self._s.snapshot(), r, c, sr=self._s.sr)
+        return assoc.get(self._sync(), r, c, sr=self.sr)
+
+    def stats(self) -> Dict[str, Any]:
+        """Publication metadata as a JSON-ready dict (the ``stats`` wire op)."""
+        return {
+            "seq": int(self.seq),
+            "records": None if self.records is None else int(self.records),
+            "engine": self.engine,
+            "nnz": None if self.nnz is None else int(self.nnz),
+            "overflowed": None if self.overflowed is None else bool(self.overflowed),
+            "published_at": float(self.published_at),
+        }
+
+
+class QueryNamespace:
+    """Bound analytics over the session's current read view, with capacity
+    arguments filled from the session's :class:`CapacityPlan`.
+
+    While a serve loop runs, the namespace answers over the latest
+    published view and never touches the state the feed loop updates.
+    Outside a serve it answers over a lazily built view of the live state,
+    cached until the next update.  Querying during a serve that publishes
+    no views reads the live state with a ``DeprecationWarning``, as in the
+    reference.
+    """
+
+    def __init__(self, session: "D4MStream"):
+        self._s = session
+
+    def _resolve(self) -> StreamView:
+        s = self._s
+        if s._serving:
+            v = s.latest_view()
+            if v is not None:
+                return v
+            warnings.warn(
+                "querying live mutable session state during an active serve "
+                "is deprecated (the read races the update path): set "
+                "ServeConfig.publish_every to publish snapshot-isolated "
+                "views and bind through D4MStream.view()/latest_view()",
+                DeprecationWarning,
+                stacklevel=3,
+            )
+        return s._current_view()
+
+    def degrees(self, cap: int | None = None) -> Tuple[Assoc, Assoc]:
+        """(out_degree, in_degree) keyed ``(vertex, 0)``."""
+        return self._resolve().degrees(cap)
+
+    def top_k(self, k: int = 10, by: str = "out") -> Tuple[torch.Tensor, torch.Tensor]:
+        """Heaviest-k vertices by out/in degree: ``(ids [k], counts [k])``."""
+        return self._resolve().top_k(k, by)
+
+    def triangles(self, cap_sq: int | None = None, max_fanout: int | None = None) -> torch.Tensor:
+        """Triangle count of the undirected support (see
+        :meth:`StreamView.triangles`)."""
+        return self._resolve().triangles(cap_sq, max_fanout)
+
+    def common_neighbors(self, u: int, v: int, cap: int | None = None) -> torch.Tensor:
+        return self._resolve().common_neighbors(u, v, cap)
+
+    def jaccard(self, u: int, v: int, cap: int | None = None) -> torch.Tensor:
+        return self._resolve().jaccard(u, v, cap)
+
+    def reachable_within(
+        self, steps: int, cap: int | None = None, max_fanout: int | None = None
+    ) -> Assoc:
+        return self._resolve().reachable_within(steps, cap, max_fanout)
+
+    def row(self, r: int, cap: int | None = None) -> Assoc:
+        """Row slice ``A(r, :)``."""
+        return self._resolve().row(r, cap)
+
+    def get(self, r, c) -> torch.Tensor:
+        """Point query ``A(r, c)``."""
+        return self._resolve().get(r, c)
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +310,14 @@ class D4MStream:
     """One streaming D4M session over the engine the config and device
     call for (see the module docstring)."""
 
-    def __init__(self, config: StreamConfig, *, device: str | torch.device | None = None):
+    def __init__(
+        self,
+        config: StreamConfig,
+        *,
+        device: str | torch.device | None = None,
+        checkpoint_dir: str | None = None,
+        checkpoint_keep: int = 3,
+    ):
         config.validate()
         self.device = resolve_device(device)
         self.config = config
@@ -196,9 +329,18 @@ class D4MStream:
         self.k_per_device = int(config.instances_per_device)
         self.kind = config.resolved_engine(self.device)
         self.n_instances = 1 if self.kind == "single" else self.k_per_device
+        self._ckpt_dir = checkpoint_dir
+        self._ckpt_keep = checkpoint_keep
+        self._mgr = None
         self._snap_cache: Dict[Tuple[int, bool], Assoc] = {}
-        self._degree_cache: Dict[int, Tuple[Assoc, Assoc]] = {}
         self._query: Optional[QueryNamespace] = None
+        # the query plane: published immutable views + the library-mode live
+        # view (dropped on every mutation)
+        self._view_seq = 0
+        self._published_view: Optional[StreamView] = None
+        self._live_view: Optional[StreamView] = None
+        self._serving = False  # set by D4MServer while its feed loop owns state
+        self._obs = None  # view-build histogram handle, set by D4MServer
         self._state: Optional[HierAssoc] = None  # allocated lazily
 
     # -- lifecycle -----------------------------------------------------------
@@ -266,6 +408,11 @@ class D4MStream:
         self.state = self._step(self.state, *self._tensors(rows, cols, vals))
         self._invalidate()
         return self
+
+    def shard_stream(self, rows, cols, vals):
+        """Place pre-split ``[n_instances, B]`` triples instance-major: the
+        identity off the mesh engine, which is not ported yet."""
+        return rows, cols, vals
 
     def route(self, rows, cols, vals):
         """Hash-split a flat global batch into per-instance sub-batches
@@ -336,8 +483,75 @@ class D4MStream:
         return snap
 
     def _invalidate(self) -> None:
+        """Every mutation lands here: drop the cached snapshots and the
+        library-mode live view.  Published views stay: they are owned and
+        answer until the next publication replaces them."""
         self._snap_cache.clear()
-        self._degree_cache.clear()
+        self._live_view = None
+
+    def synchronize(self) -> None:
+        """Wait until every update queued on this thread's stream of the
+        session's device has run (nothing to wait for on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def view(
+        self,
+        cap: int | None = None,
+        *,
+        records: int | None = None,
+        degrees: Tuple[Assoc, Assoc] | None = None,
+        publish: bool = True,
+    ) -> StreamView:
+        """Materialize an owned, immutable :class:`StreamView` of the
+        current state.
+
+        ``publish=True`` assigns the next sequence number and makes the view
+        the session's :meth:`latest_view` (what the serve loop does at
+        microbatch boundaries).  ``records`` stamps the source records
+        folded in; ``degrees`` pre-seeds the view's degree cache.
+        """
+        seq = self._view_seq + 1 if publish else self._view_seq
+        _t0 = 0 if self._obs is None else time.perf_counter_ns()
+        snap = self.snapshot(cap)
+        ready = stream = None
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        v = StreamView(
+            snap=snap,
+            sr=self.sr,
+            plan=self.plan,
+            engine=self.kind,
+            seq=seq,
+            records=None if records is None else int(records),
+            published_at=time.monotonic(),
+            nnz=self.nnz(),
+            overflowed=self.overflowed(),
+            ready=ready,
+            _stream=stream,
+        )
+        if self._obs is not None:
+            self._obs.record(time.perf_counter_ns() - _t0)
+        if degrees is not None:
+            v._degree_cache[v._cap(cap)] = degrees
+        if publish:
+            self._view_seq = seq
+            self._published_view = v
+        return v
+
+    def latest_view(self) -> Optional[StreamView]:
+        """The most recently published view (``None`` before the first);
+        safe to read from any thread (publication swaps one reference)."""
+        return self._published_view
+
+    def _current_view(self) -> StreamView:
+        """Library-mode read view: built lazily over the cached live
+        snapshot, dropped by the next mutation (not published)."""
+        if self._live_view is None:
+            self._live_view = self.view(publish=False)
+        return self._live_view
 
     def nnz(self) -> int:
         """Total distinct-key upper bound across all instances."""
@@ -374,6 +588,101 @@ class D4MStream:
         if self._query is None:
             self._query = QueryNamespace(self)
         return self._query
+
+    # -- serving (wires repro_torch.serve) ----------------------------------
+    def serve(
+        self,
+        source,
+        serve_config: ServeConfig | None = None,
+        timeout: float | None = None,
+        **overrides,
+    ):
+        """Serve a record source into this session until it drains; returns
+        a :class:`repro_torch.serve.ServeReport`.
+
+        The explicit ``serve_config`` wins, then the config's ``serve=``
+        field, then defaults; keyword ``overrides`` patch single fields.
+        For manual control (live telemetry, a stop mid-stream) build a
+        :class:`repro_torch.serve.D4MServer` directly.
+        """
+        from repro_torch.serve import D4MServer
+
+        cfg = serve_config or self.config.serve or ServeConfig()
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        return D4MServer(self, source, cfg).run(timeout=timeout)
+
+    # -- fault tolerance (wires repro_torch.checkpoint) -----------------------
+    def _manager(self):
+        if self._ckpt_dir is None:
+            raise ValueError("session has no checkpoint_dir; pass checkpoint_dir= to D4MStream")
+        if self._mgr is None:
+            from repro_torch.checkpoint.manager import CheckpointManager
+
+            self._mgr = CheckpointManager(self._ckpt_dir, keep=self._ckpt_keep)
+        return self._mgr
+
+    def checkpoint(self, step: int, extra: Dict[str, Any] | None = None) -> None:
+        """Asynchronous atomic save of the whole state (plus metadata such
+        as the stream cursor in ``extra``).  Host copies are taken before
+        this returns, behind every update queued on this thread's stream;
+        serialization overlaps the next updates.  The ``cuda`` engine writes
+        its layers at the reference's power-of-two widths (the tail dead),
+        so the reference's ``pallas`` engine restores it."""
+        state = self.state
+        if self.kind == "cuda":
+            state = hierarchical.pad_layers_pow2(state, self.sr)
+        self._manager().save_async(step, state, extra=extra)
+
+    def wait_checkpoint(self) -> None:
+        self._manager().wait()
+
+    def restore(self, step: int | None = None, fallback: bool | None = None) -> Dict[str, Any]:
+        """Restore the state from the latest (or given) checkpoint, of either
+        package; returns the saved ``extra`` metadata (e.g. the stream
+        cursor).  ``fallback`` (default: on when no step is pinned) walks
+        back past damaged generations to the newest one that verifies.
+
+        A layer saved wider than this session's (the reference's ``pallas``
+        engine and the port's ``cuda`` engine pad to powers of two) must be
+        dead past this session's capacity, and is cut to it; a narrower one
+        is padded with dead slots.  The state comes back as owned tensors
+        on the session's device (through ``core.convert.hier_from_numpy``).
+        """
+        from repro_torch.core import convert
+
+        mgr = self._manager()
+        mgr.wait()
+        like = self.state
+        host, extra = mgr.restore(like, step=step, fallback=fallback)
+        layers = []
+        for i, (l, want) in enumerate(zip(host.layers, like.layers)):
+            width = want.capacity
+            r, c, v = l.rows, l.cols, l.vals
+            have = r.shape[-1]
+            if have > width:
+                if not (r[..., width:] == assoc.PAD).all():
+                    raise ValueError(
+                        f"checkpoint layer {i} holds live entries past this "
+                        f"session's capacity {width}"
+                    )
+                r, c, v = r[..., :width], c[..., :width], v[..., :width]
+            layers.append((r, c, v, l.nnz, l.overflow))
+        h = convert.hier_from_numpy(layers, host.cascades, device=self.device)
+        zero = self.sr.zero_as(self.dtype)
+        out = tuple(
+            Assoc(
+                rows=hierarchical.pad_tail(l.rows, want.capacity, assoc.PAD),
+                cols=hierarchical.pad_tail(l.cols, want.capacity, assoc.PAD),
+                vals=hierarchical.pad_tail(l.vals.to(self.dtype), want.capacity, zero),
+                nnz=l.nnz,
+                overflow=l.overflow,
+            )
+            for l, want in zip(h.layers, like.layers)
+        )
+        self.state = HierAssoc(layers=out, cascades=h.cascades)
+        self._invalidate()
+        return extra
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return (

@@ -7,25 +7,29 @@ import functools
 
 import torch
 
-#: value type -> the dtype code the CUDA entry points take
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+from repro_torch.core.semiring import as_value
+
+#: value type -> the dtype code the CUDA entry points take (csrc/value_types.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2, torch.float16: 3}
 INT32_LIMIT = 2**31 - 1
 
 
-def dtype_code(vals: torch.Tensor, kernel: str) -> int:
-    if vals.dtype not in DTYPE_CODES:
-        raise NotImplementedError(
-            f"the {kernel} kernel takes float32 and bfloat16 values, got {vals.dtype}"
-        )
+def dtype_code(vals: torch.Tensor, kernel: str, types=tuple(DTYPE_CODES)) -> int:
+    """The dtype code of ``vals``; a value type outside ``types`` (the
+    kernel's) raises."""
+    if vals.dtype not in types:
+        names = ", ".join(str(t).removeprefix("torch.") for t in types)
+        raise NotImplementedError(f"the {kernel} kernel takes {names} values, got {vals.dtype}")
     return DTYPE_CODES[vals.dtype]
 
 
 @functools.lru_cache(maxsize=None)
 def zero_bits(zero: float, dtype: torch.dtype) -> int:
-    """The bits of ``zero`` in ``dtype`` as PyTorch writes them (what
-    ``torch.full`` fills a dead slot with), as an unsigned int."""
-    t = torch.full((), zero, dtype=dtype)
-    if dtype == torch.bfloat16:
+    """The bits of ``zero`` in ``dtype`` as the port writes a dead slot
+    (``torch.full`` of :func:`~repro_torch.core.semiring.as_value`), as an
+    unsigned int."""
+    t = torch.full((), as_value(zero, dtype), dtype=dtype)
+    if dtype.itemsize == 2:
         return int(t.view(torch.int16).item()) & 0xFFFF
     return int(t.view(torch.int32).item()) & 0xFFFFFFFF
 

@@ -15,7 +15,7 @@ of layer 1 and the batch's live entries, read and written back.  Each merge
 of a step runs over the whole card in merge-path tiles x K instances, out of
 place into a scratch of the widest layer (kept with the state), copied
 back; the lane skip is decided on the card, so a call makes no host sync
-(see the note at the top of the source).  It takes float32 and bfloat16 values; other types
+(see the note at the top of the source).  It takes float32, bfloat16, float16 and int32 values; other types
 raise ``NotImplementedError``.
 
 The wrapper dispatches on where the tensors lie: on the CPU it runs
@@ -106,7 +106,7 @@ def cascade_step_plain(
                 merged = assoc.add_plain(lane(i + 1, k), lane(i, k), cap=caps[i + 1], sr=sr)
                 store(i + 1, k, merged, nnz[k, i], True)
                 r, c, v = bufs[i]
-                r[k], c[k], v[k] = PAD, PAD, sr.zero
+                r[k], c[k], v[k] = PAD, PAD, sr.zero_as(v.dtype)
                 nnz[k, i], overflow[k, i] = 0, False
                 cascades[k, i + 1] += 1
 

@@ -14,7 +14,8 @@ in merge-path tiles (``csrc/merge.cuh``): one warp search per tile edge, a
 merge of each tile in shared memory, a scan of the tiles' survivor counts
 for their output offsets, and the fill of the dead tail; three launches
 (see the note at the top of the source).  It takes leading batch axes (one group per batch index),
-float32 and bfloat16 values; other types raise ``NotImplementedError``.
+float32, bfloat16, float16 and int32 values (an int32 fold stays integer:
+plus wraps, no ``+ 0.0``); other types raise ``NotImplementedError``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  Nothing falls back.

@@ -4,7 +4,7 @@ Port of ``repro/kernels/scatter_add/ops.py``.  :func:`scatter_add` updates
 ``table`` in place and returns it, as the reference donates the table's
 buffer.  ``ids`` are int32 ``[k]``, sorted and unique, with ``PAD``
 (``2**31 - 1``) in dead slots; ``rows`` are ``[k, d]`` and ``table`` is
-``[V, d]``, each float32 or bfloat16.  The result is what the reference's
+``[V, d]``, each float32, bfloat16 or float16.  The result is what the reference's
 oracle ``scatter_add_ref`` computes, bit for bit (see
 :func:`scatter_add_plain`): rows cast to the table's type, then added; a
 negative id wraps to ``V + id``; an id still outside ``[0, V)`` drops; and
@@ -32,6 +32,8 @@ from repro_torch.core.assoc import PAD
 
 from .. import _build, _launch
 
+#: the table and row types the kernel takes
+TYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: wrapper calls that launched the kernel (the chip smoke test zeroes it)
 launch_count = 0
 
@@ -89,8 +91,8 @@ def scatter_add_kernel(ids: torch.Tensor, rows: torch.Tensor, table: torch.Tenso
         )
     if not table.is_contiguous():
         raise ValueError("scatter_add updates the table in place: it must be contiguous")
-    t_code = _launch.dtype_code(table, "scatter_add")
-    r_code = _launch.dtype_code(rows, "scatter_add")
+    t_code = _launch.dtype_code(table, "scatter_add", TYPES)
+    r_code = _launch.dtype_code(rows, "scatter_add", TYPES)
     dev = _launch.check_cuda("scatter_add", ids, rows, table)
     nrows, d = table.shape
     if nrows >= _launch.INT32_LIMIT:

@@ -29,8 +29,9 @@ at most ``2 log2(n)`` nodes in ``lax.associative_scan``'s bracketing: no
 walk along a run (see the note at the top of the source).
 ``from_triples`` makes ``1 + ceil(log2(n / 4096)) + 2`` CUDA launches,
 ``combine_sorted`` 2, each a programmatic dependent launch (launched as the
-kernel before it on the stream finishes).  Values are float32 or
-bfloat16; other types raise ``NotImplementedError``.  The workspaces are
+kernel before it on the stream finishes).  Values are float32, bfloat16,
+float16 or int32 (an int32 fold stays integer: plus wraps, no ``+ 0.0``);
+other types raise ``NotImplementedError``.  The workspaces are
 kept per device and stream between calls, so a call allocates only its
 outputs.
 

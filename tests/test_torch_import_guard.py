@@ -25,7 +25,12 @@ for name in ("repro_torch.kernels.merge_add.ops", "repro_torch.kernels.sort_dedu
              "repro_torch.sparse.hier_grad", "repro_torch.sparse.convert",
              "repro_torch.optim.adamw",
              "repro_torch.data.tokens", "repro_torch.models.config",
-             "repro_torch.configs.granite_3_8b"):
+             "repro_torch.configs.granite_3_8b",
+             "repro_torch.faults.plan", "repro_torch.faults.retry",
+             "repro_torch.obs.hist", "repro_torch.obs.registry", "repro_torch.obs.trace",
+             "repro_torch.checkpoint.manager",
+             "repro_torch.serve.wire", "repro_torch.serve.router", "repro_torch.serve.sources",
+             "repro_torch.serve.query", "repro_torch.serve.server"):
     assert name in names, name
 print(len(names))
 """

@@ -176,7 +176,7 @@ def test_dispatch_and_plain_versions_switch(monkeypatch):
 
 
 def test_kernel_refuses_what_it_does_not_take():
-    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
+    with pytest.raises(NotImplementedError, match="float32, bfloat16, int32, float16"):
         _launch.dtype_code(torch.zeros(2, dtype=torch.float64), "merge_add")
     with pytest.raises(ValueError, match="one CUDA device"):
         tops.merge_add_kernel(

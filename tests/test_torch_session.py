@@ -100,7 +100,7 @@ def test_session_semirings(srn, k):
 def test_pallas_engine_maps_to_cuda_engine():
     ref, port = _pair("pallas", 2)
     assert ref.kind == "pallas" and port.kind == "cuda"
-    assert port.config.to_dict()["engine"] == "cuda"
+    assert port.config.to_dict()["engine"] == "pallas"  # the reference's wire name
     _feed([ref, port], 2, 4, 16, space=24)
     assert int(port.state.cascades[:, 1].sum()) > 0
     _assert_sessions_same(port, ref)
@@ -146,8 +146,10 @@ def test_constructors_default_to_the_card(monkeypatch, build):
 def test_config_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="mesh"):
         td4m.StreamConfig(cuts=(8,), top_capacity=64, batch_size=8, devices=2).resolved_engine("cpu")
-    with pytest.raises(NotImplementedError, match="ServeConfig"):
-        td4m.StreamConfig(cuts=(8,), top_capacity=64, batch_size=8, serve={}).validate()
+    with pytest.raises(ValueError, match="must not exceed"):
+        td4m.StreamConfig(
+            cuts=(8,), top_capacity=64, batch_size=8, serve=td4m.ServeConfig(max_batch=16)
+        ).validate()
     cfg = td4m.StreamConfig(cuts=(8,), top_capacity=64, batch_size=8, instances_per_device=4)
     assert cfg.resolved_engine("cpu") == "packed"
     assert cfg.resolved_engine("cuda") == "cuda"
