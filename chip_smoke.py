@@ -64,7 +64,18 @@ Phases, each of which asserts (any failure exits non-zero):
     distinct count;
     then ``scatter_add`` alone at that shape, with its bound, plain version
     and ``index_add_`` of the live prefix as a yardstick;
-11. print a ``{"kernels": [...]}`` line, the card's name and power limit,
+11. the fleet (``repro_torch.fleet``, after the serve phases, with this
+    process's streaming state freed first): N = 1, 2 and 4 worker
+    processes, each a full-width ``cuda`` session (K=8, ``CONFIG``) fed its
+    host-tier shard of the 200 groups by ``FleetController.run``; N=4
+    again with the default ``ServeConfig``; and a kill leg (N=2 at reduced
+    depth, checkpointing: SIGKILL after the first durable checkpoint,
+    revive, replay).  Every merged snapshot (one ``sort_dedup`` call over
+    the workers' snapshots) is bit-identical to the library-mode K=8
+    snapshot, at N=4 also inside ``plain_versions()``; every worker
+    reports its own ``hier_cascade``, ``sort_dedup`` and ``merge_add``
+    launches; a ``[fleet-metrics]`` line holds the rates;
+12. print a ``{"kernels": [...]}`` line, the card's name and power limit,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path and read just after;
@@ -78,6 +89,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1354,6 +1366,331 @@ def phase_loopback(torch, np, rows, cols, vals):
     return {"answers": len(replies), "views": len(seqs), "query_ms": query_ms, "rate": report.ingest_rate}
 
 
+FLEET_WORKERS = (1, 2, 4)  # the full-width sweep: 8, 16 and 32 instances on the card
+# the untracked serve of phase_serve: full microbatches, no host degree fold
+FLEET_SERVE = dict(track_degrees=False, max_batch=100_000, max_latency_ms=1e9)
+# the kill leg at reduced depth: K=8, cuts and top capacity that keep a
+# checkpoint at 0.34 GB (the full width writes 5.06 GB) while every
+# cascade level fires in each of 2 workers; a checkpoint every 25 batches
+FLEET_KILL = ((20_000, 100_000, 400_000), 1_300_000, 25)
+
+
+def fleet_checks(report, n, n_workers, killed=False):
+    """The fleet's ledger: conserved, every record delivered once, no
+    restart (at least one after a kill), 8 instances a worker, every worker
+    fed, every D4M kernel launched inside every worker (counted by the
+    worker over its life, sent with its report)."""
+    tel = report.telemetry
+    check(report.conserved, "fleet ledger conserved")
+    check(report.records_in == report.records_delivered == n,
+          ("fleet records", report.records_in, report.records_delivered, n))
+    check(report.restarts >= 1 if killed else report.restarts == 0, ("fleet restarts", report.restarts))
+    check(tel.n_instances == K * n_workers, ("fleet instances", tel.n_instances))
+    check(tel.records_dropped == 0 and tel.routing_dropped == 0, "fleet: no drop")
+    check(all(w["records_fed"] > 0 for w in report.per_worker), report.per_worker)
+    for w in report.per_worker:
+        got = w["launches"] or {}
+        check(all(got.get(k, 0) > 0 for k in ("hier_cascade", "sort_dedup", "merge_add")),
+              ("kernels launched inside worker", w["worker"], got))
+
+
+def fleet_launches(report) -> dict:
+    """Launches inside the workers of one fleet run, summed."""
+    out = {name: 0 for name in counters()}
+    for w in report.per_worker:
+        for name, n in (w["launches"] or {}).items():
+            out[name] += n
+    return out
+
+
+def fleet_merge(torch, report, want, what):
+    """``merged_snapshot`` on the card, timed on the host clock (the npz
+    triples' upload included), counted, and held bit for bit to the
+    library-mode K=8 snapshot ``want``."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = report.merged_snapshot(device=DEVICE)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    check(launches == {"hier_cascade": 0, "merge_add": 0, "scatter_add": 0, "sort_dedup": 1},
+          (what, "merged snapshot launches", launches))
+    assoc_same(torch, snap, want, f"{what}: merged snapshot vs library-mode K=8")
+    return snap, ms, launches
+
+
+def fleet_run(cfg, n_workers, rows, cols, vals, serve_cfg, metrics, tag):
+    """One fleet of ``n_workers`` worker processes on the card, fed the whole
+    stream through ``ArraySource`` by ``FleetController.run``; returns the
+    report, the spawn seconds and, with ``metrics``, the fleet's merged
+    histograms (the controller's ``fleet.push_ns``, the workers' decode,
+    route, enqueue-wait and dispatch spans) as ms summaries."""
+    import shutil
+    import tempfile
+
+    from repro_torch import serve
+    from repro_torch.configs.d4m_stream import CONFIG
+    from repro_torch.fleet import FleetController
+    from repro_torch.obs import summarize_state
+
+    workdir = tempfile.mkdtemp(prefix=f"d4m-fleet-{tag}-")
+    ctl = FleetController(cfg, n_workers=n_workers, workdir=workdir, serve_config=serve_cfg,
+                          metrics=metrics, report_interval_s=0.5, device=DEVICE)
+    try:
+        t0 = time.perf_counter()
+        ctl.start()
+        spawn_s = time.perf_counter() - t0
+        report = ctl.run(serve.ArraySource(rows, cols, vals, chunk_records=CONFIG.group_size),
+                         finish_timeout_s=900)
+        hists = None
+        if metrics:  # the controller's push and the workers' serve stages, merged
+            hists = {name: {k[:-3] + "_ms" if k.endswith("_ns") else k: v / 1e6 if k.endswith("_ns") else v
+                            for k, v in summarize_state(st).items()}
+                     for name, st in ctl.metrics()["histograms"].items()}
+        return report, spawn_s, hists
+    finally:
+        ctl.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def fleet_host_costs(np, rows, cols, vals, chunks=20):
+    """The controller's own work on a chunk, without sockets: median ms of
+    ``split_by_host`` over a 100,000-record chunk and of encoding its parts
+    in the wire format, at each N of the sweep (host clock)."""
+    from repro_torch.configs.d4m_stream import CONFIG
+    from repro_torch.fleet.routing import split_by_host
+    from repro_torch.serve import wire
+
+    g = CONFIG.group_size
+    out = {}
+    for n_workers in FLEET_WORKERS:
+        split, enc = [], []
+        for i in range(chunks):
+            s = slice(i * g, (i + 1) * g)
+            t0 = time.perf_counter()
+            parts = split_by_host(rows[s], cols[s], vals[s], n_workers)
+            t1 = time.perf_counter()
+            for r, c, v in parts:
+                wire.encode(r, c, v, "binary")
+            t2 = time.perf_counter()
+            split.append((t1 - t0) * 1e3)
+            enc.append((t2 - t1) * 1e3)
+        out[n_workers] = {"split_ms": float(np.median(split)), "encode_ms": float(np.median(enc))}
+    return out
+
+
+def fleet_kill_leg(torch, np, rows, cols, vals, n_distinct, want):
+    """N=2 at reduced depth (``FLEET_KILL``), checkpointing: SIGKILL worker
+    1 after its first durable checkpoint, revive it from that checkpoint
+    and replay the journal tail; the merged snapshot is still the
+    library-mode K=8 snapshot, bit for bit.  Then the acked checkpoint's
+    restore and a save of it, timed in this process."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.d4m_stream import CONFIG
+    from repro_torch.d4m import D4MStream, ServeConfig
+    from repro_torch.fleet import FleetController
+
+    cuts, top, every = FLEET_KILL
+    cfg = CONFIG.to_session(instances_per_device=K, cuts=cuts, top_capacity=top,
+                            snapshot_cap=n_distinct)
+    n, chunk, victim = rows.shape[0], CONFIG.group_size, 1
+    workdir = tempfile.mkdtemp(prefix="d4m-fleet-kill-")
+    ctl = FleetController(cfg, n_workers=2, workdir=workdir,
+                          serve_config=ServeConfig(checkpoint_every=every, **FLEET_SERVE),
+                          report_interval_s=0.2, device=DEVICE)
+    out = {"cuts": list(cuts), "top_capacity": top, "checkpoint_every": every}
+    try:
+        ctl.start()
+        n_chunks = n // chunk
+        for i in range(n_chunks):
+            s = slice(i * chunk, (i + 1) * chunk)
+            ctl.push(rows[s], cols[s], vals[s])
+            if i == n_chunks // 2:
+                deadline = time.monotonic() + 300
+                while ctl.workers[victim].last_ckpt is None and time.monotonic() < deadline:
+                    time.sleep(0.05)
+                acked = ctl.workers[victim].last_ckpt
+                check(acked is not None, "kill leg: the victim published a durable checkpoint")
+                ctl.kill_worker(victim)
+                t0 = time.perf_counter()
+                ctl.poll_workers()  # detect, respawn, restore, replay the journal tail
+                out["revive_s"] = time.perf_counter() - t0
+                out["acked_cursor"] = acked["cursor"]
+                out["replayed"] = ctl.workers[victim].journal.total - ctl.workers[victim].cursor_base
+                check(ctl.workers[victim].cursor_base == acked["cursor"],
+                      ("kill leg: restored cursor", ctl.workers[victim].cursor_base, acked))
+        report = ctl.finish(timeout_s=900)
+        fleet_checks(report, n, 2, killed=True)
+        gens = sorted(os.listdir(os.path.join(workdir, f"w{victim}")))
+        check(len(gens) >= 2, ("kill leg: generation dirs", gens))
+        for h in ctl.workers:
+            casc = np.asarray(h.report.session.cascades_per_instance)
+            check((casc[:, 1:] > 0).all(), ("kill leg: every cascade level fired", h.worker_id, casc.tolist()))
+        snap, merge_ms, merge_launches = fleet_merge(torch, report, want, "fleet kill leg")
+        del snap
+        out.update(report=report, merge_ms=merge_ms, merge_launches=merge_launches,
+                   generations=gens, launches=fleet_launches(report))
+
+        # the revived incarnation's last acked checkpoint: its size, its
+        # restore into a fresh session and a save of it, on this process
+        ck = ctl.workers[victim].last_ckpt
+        step_dir = os.path.join(ck["dir"], f"ckpt-{ck['step']:09d}")
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            out["checkpoint_gb"] = json.load(f)["arrays_bytes"] / 1e9
+        fresh = D4MStream(cfg, device=DEVICE, checkpoint_dir=ck["dir"])
+        fresh.state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local = int(fresh.restore(step=ck["step"])["cursor"])  # the incarnation's own cursor
+        check(ctl.workers[victim].cursor_base + local == ck["cursor"], "kill leg: restore cursor")
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        check(fresh.nnz() == ctl.workers[victim].report.session.nnz_total, "kill leg: restored nnz")
+        t0 = time.perf_counter()
+        fresh.checkpoint(ck["step"] + 1, extra={"cursor": ck["cursor"]})
+        t1 = time.perf_counter()
+        fresh.wait_checkpoint()
+        out["save_copy_s"], out["save_write_s"] = t1 - t0, time.perf_counter() - t1
+        del fresh
+        gc.collect()
+        return out
+    finally:
+        ctl.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_fleet(torch, np, data, want):
+    """``repro_torch.fleet`` on the card: N worker processes, each a
+    full-width ``cuda`` session (K=8, ``CONFIG``, 3.82 GB) serving its
+    shard of the 200 R-MAT groups behind the controller's host-tier hash
+    router, at N = 1, 2 and 4 (8 to 32 instances); N=4 again with the
+    default ``ServeConfig``; and the kill leg at reduced depth.  Every
+    merged snapshot (one ``sort_dedup`` call in this process over the
+    workers' snapshots) is the library-mode K=8 snapshot ``want``, bit for
+    bit; at N=4 also inside ``kernels.plain_versions()``.  The workers'
+    launch counts come back with their reports."""
+    from repro_torch import kernels
+    from repro_torch.configs.d4m_stream import CONFIG
+    from repro_torch.core import assoc
+    from repro_torch.d4m import ServeConfig
+
+    rows, cols, vals = (data[k].reshape(-1).cpu().numpy() for k in ("R", "C", "V"))
+    n, n_distinct = rows.shape[0], data["n_distinct"]
+    cfg = CONFIG.to_session(instances_per_device=K, top_capacity=TOP_CAPACITY, snapshot_cap=n_distinct)
+    cores = len(os.sched_getaffinity(0))
+    out = {"cores": cores, "sweep": {}, "launches": {name: 0 for name in counters()}}
+    log(f"[fleet] host cores usable {cores}; state a worker {cfg.plan().total_bytes / 1e9:.2f} GB")
+
+    def add(launches):
+        for name, c in launches.items():
+            out["launches"][name] += c
+
+    out["host_costs"] = fleet_host_costs(np, rows, cols, vals)
+    log(f"[fleet] the controller's work a 100,000-record chunk, sockets apart (median ms, host): "
+        f"{out['host_costs']}")
+
+    for n_workers in FLEET_WORKERS:
+        t0 = time.perf_counter()
+        report, spawn_s, hists = fleet_run(cfg, n_workers, rows, cols, vals,
+                                           ServeConfig(**FLEET_SERVE), True, f"n{n_workers}")
+        push = hists["fleet.push_ns"]
+        fleet_checks(report, n, n_workers)
+        snap, merge_ms, merge_launches = fleet_merge(torch, report, want, f"fleet N={n_workers}")
+        worker_launches = fleet_launches(report)
+        add(worker_launches)
+        add(merge_launches)
+        row = {
+            "aggregate_rate": report.aggregate_rate, "wall_s": report.wall_s, "spawn_s": spawn_s,
+            "worker_rates": [w["ingest_rate"] for w in report.per_worker],
+            "worker_records": [w["records_fed"] for w in report.per_worker],
+            "merged_snapshot_ms": merge_ms, "push": push, "histograms": hists,
+            "launches": worker_launches,
+            "phase_s": time.perf_counter() - t0,
+        }
+        if n_workers == max(FLEET_WORKERS):
+            zero_counts()
+            with kernels.plain_versions():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                plain = report.merged_snapshot(device=DEVICE)
+                torch.cuda.synchronize()
+                row["merged_snapshot_plain_ms"] = (time.perf_counter() - t1) * 1e3
+            check(read_counts() == {name: 0 for name in counters()}, "plain versions launch nothing")
+            assoc_same(torch, snap, plain, "fleet N=4: merged snapshot, kernel vs plain_versions()")
+            del plain
+            # the merge's sort_dedup call alone, on the card-resident triples
+            r, c, v = (torch.from_numpy(np.concatenate(x)).to(DEVICE)
+                       for x in zip(*report.snapshot_triples))
+            m = r.shape[0]
+            nbytes = ENTRY_BYTES * (m + int(snap.nnz))
+            keys = assoc.pack_keys(r, c)
+            row["merge_kernel"] = {
+                "entries": m, "runs": n_workers,
+                "ms": time_kernel(torch, np, lambda: assoc.from_triples(r, c, v, cap=m), reps=5),
+                "plain_ms": time_host(torch, np, lambda: assoc.from_triples_plain(r, c, v, cap=m), reps=3),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+                "torch_sort_ms": time_kernel(torch, np, lambda: torch.sort(keys, stable=True), reps=5),
+            }
+            del r, c, v, keys
+        del snap, report
+        gc.collect()
+        out["sweep"][n_workers] = row
+        log(f"[fleet] N={n_workers} ({K * n_workers} instances): {n:,} records at "
+            f"{row['aggregate_rate']:,.0f} records/s aggregate (wall {row['wall_s']:.3f} s after "
+            f"{spawn_s:.2f} s of spawn); workers {[round(x) for x in row['worker_rates']]} records/s "
+            f"over {row['worker_records']}; merged_snapshot {merge_ms:.2f} ms; push {push}; "
+            f"launches in the workers {worker_launches}; merged == library-mode K=8 (bit-identical)")
+        log(f"[fleet] N={n_workers} spans (count, p50/p99 ms, merged over the workers): " + "; ".join(
+            f"{name} {h['count']}, {h.get('p50_ms', 0):.3f}/{h.get('p99_ms', 0):.3f}"
+            for name, h in sorted(hists.items())))
+    mk = out["sweep"][max(FLEET_WORKERS)]["merge_kernel"]
+    log(f"[fleet] merged snapshot's sort_dedup alone ({mk['entries']:,} entries in {mk['runs']} "
+        f"sorted runs): {mk['ms']:.4f} ms, bound {mk['bound_ms']:.5f} ms, plain {mk['plain_ms']:.3f} ms "
+        f"(the whole call under plain_versions() "
+        f"{out['sweep'][max(FLEET_WORKERS)]['merged_snapshot_plain_ms']:.2f} ms); torch.sort of the "
+        f"keys {mk['torch_sort_ms']:.4f} ms (reference only); kernel == plain_versions() (bit-identical)")
+
+    # -- the default ServeConfig, N=4 ---------------------------------------------
+    n_workers = max(FLEET_WORKERS)
+    report, spawn_s, _ = fleet_run(cfg, n_workers, rows, cols, vals, None, None, "default")
+    check(report.telemetry is not None and cfg.serve is None, "the fleet's default ServeConfig")
+    fleet_checks(report, n, n_workers)
+    snap, merge_ms, merge_launches = fleet_merge(torch, report, want, "fleet default ServeConfig")
+    add(fleet_launches(report))
+    add(merge_launches)
+    out["default"] = {"aggregate_rate": report.aggregate_rate, "wall_s": report.wall_s, "spawn_s": spawn_s,
+                      "worker_rates": [w["ingest_rate"] for w in report.per_worker],
+                      "merged_snapshot_ms": merge_ms, "launches": fleet_launches(report)}
+    del snap, report
+    gc.collect()
+    d = out["default"]
+    log(f"[fleet] N={n_workers}, default ServeConfig: {d['aggregate_rate']:,.0f} records/s aggregate "
+        f"(wall {d['wall_s']:.3f} s); workers {[round(x) for x in d['worker_rates']]} records/s; "
+        f"merged_snapshot {merge_ms:.2f} ms; launches in the workers {d['launches']}; "
+        f"merged == library-mode K=8 (bit-identical)")
+
+    # -- the kill leg, N=2 at reduced depth ----------------------------------------
+    kill = fleet_kill_leg(torch, np, rows, cols, vals, n_distinct, want)
+    report = kill.pop("report")
+    add(kill["launches"])
+    add(kill["merge_launches"])
+    kill.update(aggregate_rate=report.aggregate_rate, wall_s=report.wall_s, restarts=report.restarts)
+    out["kill"] = kill
+    del report
+    gc.collect()
+    log(f"[fleet] kill leg N=2, cuts {kill['cuts']}, top {kill['top_capacity']:,}: worker 1 killed after "
+        f"its checkpoint at cursor {kill['acked_cursor']:,}, revived (spawn, restore, replay of "
+        f"{kill['replayed']:,} records) in {kill['revive_s']:.3f} s; {kill['restarts']} restart(s), "
+        f"generations {kill['generations']}; {kill['aggregate_rate']:,.0f} records/s aggregate "
+        f"(wall {kill['wall_s']:.3f} s); checkpoint {kill['checkpoint_gb']:.3f} GB: restore "
+        f"{kill['restore_s']:.3f} s, save {kill['save_copy_s']:.3f} s copies + {kill['save_write_s']:.3f} s "
+        f"write; merged == library-mode K=8 (bit-identical)")
+    return out
+
+
 def phase_algebra(torch, np, n_v=2**16, n_e=500_000, fanout=64):
     """The D4M algebra and graph queries on a bounded-degree graph
     (uniform random, 2^16 vertices, 500,000 edges, max_fanout 64): kernels
@@ -1935,7 +2272,14 @@ def main() -> int:
     types_err, types_launches = phase_value_types(torch, np, data)
     read = phase_read_side(torch, np, sess8, data)
     served = phase_serve(torch, np, data, sess8)
+    # the fleet's workers hold their own state: free this process's first
+    fleet_want = sess8.snapshot()
     del sess8
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(torch, np, data, fleet_want)
+    del fleet_want
     single_sess, single = phase_single(torch, np, data)
     times = phase_kernel_times(torch, np, data, main_run, single_sess)
     del single_sess
@@ -1957,7 +2301,8 @@ def main() -> int:
              "serve": served["cuda"]["launches"], "serve_default": served["cuda_default"]["launches"],
              "serve_single": served["single"]["launches"],
              "serve_loopback": served["loopback"]["launches"], "value_types": types_launches,
-             "algebra": algebra["launches"], "embed_grad": embed["launches"]}
+             "algebra": algebra["launches"], "embed_grad": embed["launches"],
+             "fleet": fleet["launches"]}
     err = max(ops_err, main_run["err"], read["err"], single["err"], algebra["err"], served["err"],
               types_err)
 
@@ -2026,6 +2371,7 @@ def main() -> int:
         "bound_ms_single_batch": sd1["bound_ms"],
         "torch_sort_ms": {"[8, 100000]": sd8["torch_sort_ms"], "[100000]": sd1["torch_sort_ms"]},
         "fold_stage": {k: v for k, v in times.items() if k.startswith(("degrees fold", "one run"))},
+        "fleet_merge": fleet["sweep"][max(FLEET_WORKERS)]["merge_kernel"],
         "cuda_launches_per_call": {"cuda": main_run["sort_cuda_launches_per_call"],
                                    "single": single["sort_cuda_launches_per_call"]},
         "host_ms": {"[8, 100000]": sd8["host_ms"], "[100000]": sd1["host_ms"]},
@@ -2075,6 +2421,18 @@ def main() -> int:
         "launches": {"serve": sc["launches"], "serve_default": sd["launches"],
                      "serve_single": served["single"]["launches"],
                      "serve_loopback": served["loopback"]["launches"]},
+    }))
+    log("[fleet-metrics] " + json.dumps({
+        "card": card,
+        "host_cores": fleet["cores"],
+        "serve": FLEET_SERVE,
+        "sweep": {f"N={n}": {k: v for k, v in row.items() if k != "merge_kernel"}
+                  for n, row in fleet["sweep"].items()},
+        "default_serve_config_N=4": fleet["default"],
+        "kill_leg_N=2": fleet["kill"],
+        "merge_kernel": fleet["sweep"][max(FLEET_WORKERS)]["merge_kernel"],
+        "controller_chunk_ms": fleet["host_costs"],
+        "launches": fleet["launches"],
     }))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -30,7 +30,10 @@ for name in ("repro_torch.kernels.merge_add.ops", "repro_torch.kernels.sort_dedu
              "repro_torch.obs.hist", "repro_torch.obs.registry", "repro_torch.obs.trace",
              "repro_torch.checkpoint.manager",
              "repro_torch.serve.wire", "repro_torch.serve.router", "repro_torch.serve.sources",
-             "repro_torch.serve.query", "repro_torch.serve.server"):
+             "repro_torch.serve.query", "repro_torch.serve.server",
+             "repro_torch.fleet.routing", "repro_torch.fleet.worker",
+             "repro_torch.fleet.controller",
+             "repro_torch.runtime.elastic", "repro_torch.runtime.straggler"):
     assert name in names, name
 print(len(names))
 """
@@ -56,3 +59,13 @@ def test_no_source_names_jax_or_repro():
         src = f.read_text()
         hits = [m.group(0).strip() for m in _FORBIDDEN.finditer(src)]
         assert not hits, (str(f.relative_to(ROOT)), hits)
+
+
+def test_controller_spawns_the_port_worker():
+    """The source regex above does not see a module named inside a string:
+    the fleet controller must spawn the port's worker, never the
+    reference's."""
+    src = (PORT / "fleet" / "controller.py").read_text()
+    spawned = re.findall(r'"-m",\s*"([\w.]+)"', src)
+    assert spawned == ["repro_torch.fleet.worker"], spawned
+    assert not re.search(r'["\']repro\.', src)
