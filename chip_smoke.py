@@ -75,7 +75,20 @@ Phases, each of which asserts (any failure exits non-zero):
     snapshot, at N=4 also inside ``plain_versions()``; every worker
     reports its own ``hier_cascade``, ``sort_dedup`` and ``merge_add``
     launches; a ``[fleet-metrics]`` line holds the rates;
-12. print a ``{"kernels": [...]}`` line, the card's name and power limit,
+12. the port's benchmark suite (after the fleet, this process's streaming
+    state freed): ``python -m repro_torch.benchmarks.run --experiment
+    src/repro_torch/benchmarks/experiments/chip.json`` in a subprocess, all
+    nine sections at full width (``hier`` at the paper's 100 M edges; the
+    served sections and the fleet on the 20 M-record stream at ``CONFIG``'s
+    cuts, K=8, microbatches of 100,000; the kernels at the main paths'
+    shapes); every ``BENCH_<section>.json`` read back through the port's
+    parsers, the port's gate clean on an empty history, every section's
+    correctness fields true (kernels bit-identical to their plain
+    versions, every snapshot's values the stream's counts) and its kernels
+    launched; a ``[bench-metrics]`` line holds
+    its rates and verdicts, and the ``kernels`` line its launches as
+    ``bench_<section>`` paths;
+13. print a ``{"kernels": [...]}`` line, the card's name and power limit,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path and read just after;
@@ -1691,6 +1704,103 @@ def phase_fleet(torch, np, data, want):
     return out
 
 
+BENCH_SPEC = ROOT / "src" / "repro_torch" / "benchmarks" / "experiments" / "chip.json"
+BENCH_TIMEOUT_S = 600
+#: the kernels each bench section's path runs (all must launch)
+BENCH_KERNELS = {
+    "hier_update": ("sort_dedup", "merge_add"),
+    "kernels": ("merge_add", "sort_dedup", "scatter_add"),
+    "cascade_kernel": ("hier_cascade", "sort_dedup", "merge_add"),
+    "scaling": ("hier_cascade", "sort_dedup", "merge_add"),
+    "embed_grad": ("scatter_add",),
+    "serve": ("hier_cascade", "sort_dedup", "merge_add"),
+    "query": ("hier_cascade", "sort_dedup", "merge_add"),
+    "obs": ("hier_cascade", "sort_dedup", "merge_add"),
+    "fleet": ("hier_cascade", "sort_dedup", "merge_add"),
+}
+#: the correctness fields of each section: every one must appear and be true
+BENCH_CORRECT = {
+    "hier_update": ("nnz_exact", "values_exact"),
+    "kernels": ("bit_identical",),
+    "cascade_kernel": ("engines_agree",),
+    "scaling": ("nnz_exact",),
+    "embed_grad": ("nnz_exact", "allclose"),
+    "serve": ("conserved", "nnz_exact", "values_exact"),
+    "query": ("bit_identical", "conserved"),
+    "obs": ("bit_identical", "scrape_exact", "conserved"),
+    "fleet": ("conserved", "nnz_exact", "values_exact"),
+}
+#: the params that name a rate in the [bench-metrics] line
+BENCH_LABEL_KEYS = ("k", "k_per_device", "engine", "schedule", "hosts", "n", "V")
+
+
+def _bench_label(m) -> str:
+    keys = ",".join(f"{k}={m.params[k]}" for k in BENCH_LABEL_KEYS if k in m.params)
+    return f"{m.name}[{keys}]" if keys else m.name
+
+
+def phase_bench(torch, np):
+    """The port's benchmark suite on the card: ``python -m
+    repro_torch.benchmarks.run --experiment .../chip.json`` in a subprocess
+    (all nine sections at the full-width sizes the spec names, ``hier`` at
+    the paper's 100 M edges), its ``BENCH_<section>.json`` read back through the port's
+    parsers, the port's gate run against an empty history (a clean pass),
+    every section's correctness fields true, its kernels launched, its
+    verdicts and rates returned for the ``[bench-metrics]`` line."""
+    import shutil
+    import tempfile
+
+    from repro_torch.bench import gate_run, normalize_dir
+
+    out_dir = tempfile.mkdtemp(prefix="d4m-bench-")
+    try:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.benchmarks.run", "--experiment", str(BENCH_SPEC),
+             "--json-dir", out_dir],
+            cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+        )
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"[bench] {line}")
+        check(proc.returncode == 0, f"the bench suite exited {proc.returncode}: {proc.stderr[-4000:]}")
+        record, problems = normalize_dir(out_dir, strict=True)
+        check(not problems, problems)
+        sections = record.sections()
+        check(set(sections) == set(BENCH_KERNELS), ("bench sections", sections))
+        gate = gate_run(record, [])
+        check(gate.baseline_established and gate.passed and not gate.failed,
+              "the port's gate on an empty history is a clean pass")
+        out = {"wall_s": wall, "sections": {}, "launches": {}}
+        for section in sections:
+            ms = [m for m in record.measurements if m.section == section]
+            launches = {name: 0 for name in counters()}
+            for m in ms:
+                for name, n in (m.extras.get("launches") or {}).items():
+                    launches[name] += n
+            for name in BENCH_KERNELS[section]:
+                check(launches[name] > 0, f"bench {section}: {name} launched ({launches})")
+            for field in BENCH_CORRECT[section]:
+                seen = [m.extras[field] for m in ms if field in m.extras]
+                check(seen and all(v is True for v in seen), f"bench {section}: {field} {seen}")
+            check(not any(m.extras.get("overflow") for m in ms), f"bench {section}: no overflow")
+            rates = {_bench_label(m): m.updates_per_sec for m in ms if m.updates_per_sec is not None}
+            check(all(np.isfinite(r) and r > 0 for r in rates.values()), f"bench {section}: rates {rates}")
+            verdicts = {
+                _bench_label(m): {"passed": m.passed, **{k: v for k, v in m.extras.items()
+                                                         if k not in ("launches",)}}
+                for m in ms if m.passed is not None
+            }
+            out["sections"][section] = {"rates": rates, "verdicts": verdicts}
+            out["launches"][section] = launches
+        log(f"[bench] {len(record.measurements)} measurements in {len(sections)} sections, "
+            f"{wall:.1f} s; the port's gate on an empty history: baseline established (pass)")
+        return out
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def phase_algebra(torch, np, n_v=2**16, n_e=500_000, fanout=64):
     """The D4M algebra and graph queries on a bounded-degree graph
     (uniform random, 2^16 vertices, 500,000 edges, max_fanout 64): kernels
@@ -2280,6 +2390,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet = phase_fleet(torch, np, data, fleet_want)
     del fleet_want
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench = phase_bench(torch, np)
     single_sess, single = phase_single(torch, np, data)
     times = phase_kernel_times(torch, np, data, main_run, single_sess)
     del single_sess
@@ -2302,7 +2415,8 @@ def main() -> int:
              "serve_single": served["single"]["launches"],
              "serve_loopback": served["loopback"]["launches"], "value_types": types_launches,
              "algebra": algebra["launches"], "embed_grad": embed["launches"],
-             "fleet": fleet["launches"]}
+             "fleet": fleet["launches"],
+             **{f"bench_{sec}": c for sec, c in bench["launches"].items()}}
     err = max(ops_err, main_run["err"], read["err"], single["err"], algebra["err"], served["err"],
               types_err)
 
@@ -2433,6 +2547,12 @@ def main() -> int:
         "merge_kernel": fleet["sweep"][max(FLEET_WORKERS)]["merge_kernel"],
         "controller_chunk_ms": fleet["host_costs"],
         "launches": fleet["launches"],
+    }))
+    log("[bench-metrics] " + json.dumps({
+        "card": card,
+        "wall_s": bench["wall_s"],
+        "sections": bench["sections"],
+        "launches": bench["launches"],
     }))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -12,6 +12,7 @@ ported yet: a resolved ``mesh`` engine raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Tuple
 
 import torch
@@ -21,6 +22,9 @@ from repro_torch.core.hierarchical import geometric_cuts, telescoped_caps
 from repro_torch.core.semiring import Semiring
 
 ENGINES = ("auto", "single", "packed", "cuda", "mesh")
+
+# opt-in override for "auto" engine resolution (CI forces paths with it)
+ENGINE_ENV_VAR = "REPRO_D4M_ENGINE"
 
 #: the reference's engine names that mean a port engine of another name
 ENGINE_ALIASES = {"pallas": "cuda"}
@@ -285,19 +289,37 @@ class StreamConfig:
             kw["serve"] = ServeConfig.from_dict(kw["serve"])
         return cls(**kw).validate()
 
+    def _engine_fits(self, engine: str) -> bool:
+        """Whether ``engine`` is structurally valid for this K/D shape."""
+        d = self.resolved_devices()
+        if engine == "single":
+            return self.instances_per_device == 1 and d == 1
+        if engine in ("packed", "cuda"):
+            return d == 1
+        return engine in ENGINES
+
     def resolved_engine(self, device: str | torch.device = "cuda") -> str:
         """The engine ``"auto"`` resolves to on ``device``.
 
-        An explicit ``engine=`` wins; otherwise K>1 picks the ``cuda``
+        The reference's order: an explicit ``engine=`` always wins; then the
+        ``REPRO_D4M_ENGINE`` environment variable (the reference's names,
+        ``"pallas"`` read as ``"cuda"``), when it fits the K/D shape (an
+        override that does not fit is ignored; an unknown name raises
+        ``ValueError``); then the shape heuristics: K>1 picks the ``cuda``
         kernel engine on a CUDA device and the branchless ``packed`` engine
         on the CPU, and K=1 picks ``single``.  ``mesh`` (D>1) is not ported
-        yet and raises.  The reference's ``REPRO_D4M_ENGINE`` override is
-        not read.
+        yet and raises ``NotImplementedError``.
         """
         self.validate()
         engine = self.engine
         if engine == "auto":
-            if self.resolved_devices() > 1:
+            raw = os.environ.get(ENGINE_ENV_VAR, "").strip()
+            env = ENGINE_ALIASES.get(raw, raw)
+            if env and env not in ENGINES:
+                raise ValueError(f"{ENGINE_ENV_VAR}={raw!r} is not one of {ENGINES}")
+            if env and env != "auto" and self._engine_fits(env):
+                engine = env
+            elif self.resolved_devices() > 1:
                 engine = "mesh"
             elif self.instances_per_device > 1:
                 engine = "cuda" if torch.device(device).type == "cuda" else "packed"

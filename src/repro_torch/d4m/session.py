@@ -379,6 +379,15 @@ class D4MStream:
         self._invalidate()
         return self
 
+    @property
+    def raw_update(self):
+        """The ``(h, rows, cols, vals) -> h`` update step of this session's
+        engine, on tensors already on the session's device: the previous
+        state is consumed, as the reference's donating step consumes it.
+        Eager, so unlike the reference's jitted step it has no ``.lower()``
+        to inspect."""
+        return self._step
+
     def _tensors(self, rows, cols, vals):
         dev = self.device
         return (

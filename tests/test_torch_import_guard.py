@@ -33,7 +33,16 @@ for name in ("repro_torch.kernels.merge_add.ops", "repro_torch.kernels.sort_dedu
              "repro_torch.serve.query", "repro_torch.serve.server",
              "repro_torch.fleet.routing", "repro_torch.fleet.worker",
              "repro_torch.fleet.controller",
-             "repro_torch.runtime.elastic", "repro_torch.runtime.straggler"):
+             "repro_torch.runtime.elastic", "repro_torch.runtime.straggler",
+             "repro_torch.bench", "repro_torch.bench.models", "repro_torch.bench.reporting",
+             "repro_torch.bench.parsers", "repro_torch.bench.history", "repro_torch.bench.gate",
+             "repro_torch.bench.experiments", "repro_torch.bench.report",
+             "repro_torch.bench.dashboard", "repro_torch.benchmarks", "repro_torch.benchmarks.run",
+             "repro_torch.benchmarks.bench_hier_update", "repro_torch.benchmarks.bench_kernels",
+             "repro_torch.benchmarks.bench_cascade_kernel", "repro_torch.benchmarks.bench_scaling",
+             "repro_torch.benchmarks.bench_embed_grad", "repro_torch.benchmarks.bench_serve",
+             "repro_torch.benchmarks.bench_query", "repro_torch.benchmarks.bench_obs",
+             "repro_torch.benchmarks.bench_fleet"):
     assert name in names, name
 print(len(names))
 """
@@ -49,7 +58,7 @@ def test_every_module_imports_without_jax():
         [sys.executable, "-c", _CHILD], env=env, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 45
+    assert int(out.stdout.strip().splitlines()[-1]) >= 90
 
 
 def test_no_source_names_jax_or_repro():
@@ -69,3 +78,15 @@ def test_controller_spawns_the_port_worker():
     spawned = re.findall(r'"-m",\s*"([\w.]+)"', src)
     assert spawned == ["repro_torch.fleet.worker"], spawned
     assert not re.search(r'["\']repro\.', src)
+
+
+def test_bench_sections_are_the_ports():
+    """The experiment runner names its sections in strings: every one must
+    be a module of the port's ``benchmarks`` package, never the reference's."""
+    from repro_torch.bench import experiments
+
+    mods = experiments._SECTION_MODULES
+    assert set(mods) == set(experiments.SECTIONS)
+    assert all(m.startswith("repro_torch.benchmarks.bench_") for m in mods.values()), mods
+    src = (PORT / "bench" / "experiments.py").read_text()
+    assert not re.search(r'["\'](repro|benchmarks)\.bench', src)
