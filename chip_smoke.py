@@ -37,23 +37,36 @@ Phases, each of which asserts (any failure exits non-zero):
    and through the plain versions, and require all three states
    bit-identical; then 120 groups in bfloat16 through the kernels and
    inside ``kernels.plain_versions()``, bit-identical;
-6. the read side: the K=8 snapshot and ``query.degrees`` through the
+6. the mesh engine (``MultiStreamEngine`` through ``D4MStream(cfg,
+   mesh=Mesh(...))``): D=4 shards on ``cuda:0`` (``cuda:0..3`` on a machine
+   with four cards).  D=4 x K=2 over the stream, bit-identical to step 5's
+   K=8 state and, inside ``kernels.plain_versions()``, to the plain
+   versions (state and global snapshot); D=4 x K=8 (32 instances, 15.3 GB)
+   over the stream, its updates/s beside the ``cuda`` engine's at K=32 in
+   the same call, both states bit-identical, the global snapshot numpy's
+   keys with their counts; ``ShardedAssoc`` at D=4 over the stream as 50
+   steps of 100,000 records a shard (key space 2^20): no drop, ``get``
+   numpy's counts on 100,000 sampled keys and 100,000 absent ones, 3
+   ``all-to-all`` and 1 ``all-reduce`` an update, kernels against plain
+   versions bit for bit; no collective on the mesh's update path; a
+   ``[mesh-metrics]`` line holds the rates;
+7. the read side: the K=8 snapshot and ``query.degrees`` through the
    kernels and inside ``kernels.plain_versions()``, bit-identical, checked
    against numpy's distinct count and ``bincount``;
-7. the ``single`` engine (K=1, ``CONFIG`` unchanged: top capacity 140 M)
+8. the ``single`` engine (K=1, ``CONFIG`` unchanged: top capacity 140 M)
    at full width, through the kernels and inside ``plain_versions()``,
    bit-identical, every cascade level firing;
-8. per-call times of ``sort_dedup`` and ``merge_add`` at the main paths'
+9. per-call times of ``sort_dedup`` and ``merge_add`` at the main paths'
    shapes (``sort_dedup``: both engines' batches, the degrees' fold stage
    and its longest run, with the CUDA launches and the wrapper's host ms a
    call; ``merge_add``: the layer-1 merge, the snapshot merges and the
    ``single`` engine's last 1->2, 2->3 and 3->4 cascade merges), with
    their byte bounds (dead-tail bytes apart), plain versions and
    ``torch.sort`` of the same keys as a reference;
-9. the algebra and graph queries on a uniform random graph (2^16
+10. the algebra and graph queries on a uniform random graph (2^16
    vertices, 500,000 edges, ``max_fanout`` 64), kernels against plain bit
    for bit, triangles against scipy's ``trace(A^3)/6``;
-10. the embedding-gradient path at granite-3-8b's full width (after the
+11. the embedding-gradient path at granite-3-8b's full width (after the
     streaming phases' state is freed): one optimizer window of 256
     microbatches of 4096 tokens (``TokenStream``, Zipf 1.3) into the
     hierarchical row accumulator, ``hier_flush``, ``dense_grad_of``
@@ -64,7 +77,7 @@ Phases, each of which asserts (any failure exits non-zero):
     distinct count;
     then ``scatter_add`` alone at that shape, with its bound, plain version
     and ``index_add_`` of the live prefix as a yardstick;
-11. the fleet (``repro_torch.fleet``, after the serve phases, with this
+12. the fleet (``repro_torch.fleet``, after the serve phases, with this
     process's streaming state freed first): N = 1, 2 and 4 worker
     processes, each a full-width ``cuda`` session (K=8, ``CONFIG``) fed its
     host-tier shard of the 200 groups by ``FleetController.run``; N=4
@@ -75,7 +88,7 @@ Phases, each of which asserts (any failure exits non-zero):
     snapshot, at N=4 also inside ``plain_versions()``; every worker
     reports its own ``hier_cascade``, ``sort_dedup`` and ``merge_add``
     launches; a ``[fleet-metrics]`` line holds the rates;
-12. the port's benchmark suite (after the fleet, this process's streaming
+13. the port's benchmark suite (after the fleet, this process's streaming
     state freed): ``python -m repro_torch.benchmarks.run --experiment
     src/repro_torch/benchmarks/experiments/chip.json`` in a subprocess, all
     nine sections at full width (``hier`` at the paper's 100 M edges; the
@@ -88,7 +101,7 @@ Phases, each of which asserts (any failure exits non-zero):
     launched; a ``[bench-metrics]`` line holds
     its rates and verdicts, and the ``kernels`` line its launches as
     ``bench_<section>`` paths;
-13. print a ``{"kernels": [...]}`` line, the card's name and power limit,
+14. print a ``{"kernels": [...]}`` line, the card's name and power limit,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path and read just after;
@@ -610,14 +623,16 @@ def phase_data(torch, np):
     t0 = time.perf_counter()
     src, dst = rmat.rmat_edges(rng, n_edges, CONFIG.scale, CONFIG.a, CONFIG.b, CONFIG.c)
     t_gen = time.perf_counter() - t0
-    keys = src.astype(np.int64) * 2**32 + dst.astype(np.int64)
-    n_distinct = int(np.unique(keys).size)
+    keys, counts = np.unique(src.astype(np.int64) * 2**32 + dst.astype(np.int64), return_counts=True)
+    n_distinct = int(keys.size)
     out_deg = np.bincount(src)
     log(f"[data] {n_edges:,} R-MAT scale-{CONFIG.scale} edges, {n_distinct:,} distinct, "
         f"made in {t_gen:.1f} s, counted in {time.perf_counter() - t0 - t_gen:.1f} s (host)")
     return {
         "n_edges": n_edges,
         "n_distinct": n_distinct,
+        "keys": keys,  # the distinct keys, sorted, and each one's count of edges (host)
+        "counts": counts,
         "out_deg": out_deg,
         "R": torch.tensor(src.reshape(STEPS, group), device=DEVICE),
         "C": torch.tensor(dst.reshape(STEPS, group), device=DEVICE),
@@ -755,6 +770,252 @@ def phase_main(torch, np, data):
         "rate": rate,
         "canon_ms": canon_ms,
         "routed": routed[0],
+    }
+
+
+MESH_D = 4  # shards: on the cards in turn (cuda:0..3 on four cards, all on cuda:0 on one)
+MESH_K = 2  # D x K = phase_main's K=8 instances, held to that state bit for bit
+MESH_FULL_K = 8  # D x K = 32 instances at full width, beside the cuda engine at K=32
+SHARDED_STEPS = 50  # ShardedAssoc: 50 steps of D x 100,000 records = the whole stream
+SHARDED_KEY_SPACE = 1 << 20  # rows of the scale-20 stream
+SHARDED_TOP = 16_000_000  # shard 0 owns ~58% of the R-MAT rows' records (a + b)^2
+SHARDED_QUERIES = 100_000  # sampled keys for get, and as many absent ones
+
+
+def shards_vs_packed(torch, shards, packed, what) -> float:
+    """Shard ``d`` of a mesh state (``[K]``) against instances
+    ``d*K .. d*K+K-1`` of a packed state, bit for bit, with no copy of the
+    whole state."""
+    k = shards[0].cascades.shape[0]
+    want = leaves(packed)
+    for d, h in enumerate(shards):
+        for i, (g, w) in enumerate(zip(leaves(h), want)):
+            bits_same(torch, g, w[d * k:(d + 1) * k].to(g.device), f"{what}: shard {d} leaf {i}")
+    return 0.0
+
+
+def free(torch) -> None:
+    gc.collect()  # sessions hold reference cycles
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def snapshot_holds_counts(torch, np, snap, data, what) -> None:
+    """The global snapshot holds numpy's distinct keys, each with its
+    count of records, and nothing else."""
+    n = data["n_distinct"]
+    check(int(snap.nnz) == n and not bool(snap.overflow), (what, int(snap.nnz), n))
+    dev = snap.rows.device
+    keys = (snap.rows[:n].to(torch.int64) << 32) | snap.cols[:n].to(torch.int64)
+    check(torch.equal(keys, torch.from_numpy(data["keys"]).to(dev)), f"{what}: keys")
+    check(torch.equal(snap.vals[:n], torch.from_numpy(data["counts"]).to(dev, torch.float32)),
+          f"{what}: each key's value is its count of records")
+    check(bool((snap.rows[n:] == PAD_ROW).all()), f"{what}: dead tail")
+
+
+def mesh_ingest(torch, sess, R, C, V):
+    """The stream through ``sess.ingest``: ``(wall_s, dropped)``."""
+    dropped = torch.zeros((), dtype=torch.int64, device=sess.device)
+    sess.synchronize()
+    t0 = time.perf_counter()
+    for g in range(STEPS):
+        dropped += sess.ingest(R[g], C[g], V[g])
+    sess.synchronize()
+    return time.perf_counter() - t0, int(dropped)
+
+
+def phase_mesh(torch, np, data, sess8):
+    """The mesh engine: D=4 shards over ``cuda:0`` (or four cards).
+
+    1. D=4 x K=2 over phase_main's stream, bit-identical to the ``cuda``
+       engine's K=8 state (the same hash route); the same run inside
+       ``plain_versions()`` bit-identical to it, state and global snapshot;
+    2. D=4 x K=8 (32 instances of ``CONFIG``'s shape) over the stream, its
+       updates/s beside the ``cuda`` engine's at K=32 in this call, the
+       global snapshot numpy's keys and counts, both states bit-identical;
+    3. ``ShardedAssoc`` at D=4, key space 2^20: the stream as 50 steps of
+       100,000 records a shard, no drop, ``get`` numpy's counts on sampled
+       keys, 3 ``all-to-all`` and 1 ``all-reduce`` an update, kernels
+       against plain versions bit for bit.
+    """
+    from repro_torch import kernels
+    from repro_torch.benchmarks import bench_scaling
+    from repro_torch.configs.d4m_stream import CONFIG
+    from repro_torch.core import distributed
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.d4m import D4MStream
+
+    R, C, V, n_edges = data["R"], data["C"], data["V"], data["n_edges"]
+    n = data["n_distinct"]
+    mesh = Mesh.over("cuda", MESH_D, repeat=True)
+    devs = mesh.device_list
+    log(f"[mesh] D={MESH_D} shards on {[str(d) for d in devs]} ({mesh.distinct_devices()} distinct)")
+    t_phase = time.perf_counter()
+
+    # -- 1. D=4 x K=2 against the cuda engine at K=8, and the plain versions
+    cfg2 = CONFIG.to_session(instances_per_device=MESH_K, top_capacity=TOP_CAPACITY, snapshot_cap=n)
+    runs = {}
+    for mode in ("kernels", "plain"):
+        sess = D4MStream(cfg2, mesh=mesh)
+        check(sess.kind == "mesh" and sess.n_instances == K, (sess.kind, sess.n_instances))
+        sess.state
+        zero_counts()
+        mesh.reset_collectives()
+        ctx = kernels.plain_versions() if mode == "plain" else contextlib.nullcontext()
+        with ctx:
+            wall, dropped = mesh_ingest(torch, sess, R, C, V)
+            check(dropped == 0 and not sess.overflowed(), (mode, dropped))
+            t0 = time.perf_counter()
+            snap = sess.snapshot(cap=n)
+            torch.cuda.synchronize()
+            snap_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        runs[mode] = (sess, snap, counts, wall, snap_ms, dict(mesh.collectives))
+        log(f"[mesh] D={MESH_D} x K={MESH_K} {mode}: {STEPS} groups in {wall:.3f} s = "
+            f"{n_edges / wall:,.0f} updates/s; global snapshot {snap_ms:.1f} ms; launches {counts}; "
+            f"collectives {dict(mesh.collectives)}")
+    (ks, ksnap, kcounts, kwall, _, kcoll), (ps, psnap, pcounts, _, _, _) = runs["kernels"], runs["plain"]
+    check(kcounts["hier_cascade"] == MESH_D * STEPS and kcounts["sort_dedup"] == MESH_D * STEPS
+          and kcounts["merge_add"] > 0, kcounts)
+    check(sum(pcounts.values()) == 0, ("plain_versions() launched a kernel", pcounts))
+    check(sum(kcoll.values()) == 0, ("collectives on the update path", kcoll))
+    err = shards_vs_packed(torch, ks.state, sess8.state, "mesh D=4 x K=2 vs cuda K=8")
+    err = max(err, shards_vs_packed(torch, ps.state, sess8.state, "plain mesh vs cuda K=8"))
+    err = max(err, assoc_same(torch, ksnap, psnap, "mesh global snapshot: kernels vs plain"))
+    snapshot_holds_counts(torch, np, ksnap, data, "mesh D=4 x K=2")
+    log(f"[mesh] D={MESH_D} x K={MESH_K} state == cuda engine K={K} state == plain versions "
+        f"(bit-identical); global snapshot == plain == numpy's keys and counts")
+    small = {"rate": n_edges / kwall, "launches": kcounts}
+    del runs, ks, ps, ksnap, psnap, sess, snap
+    free(torch)
+
+    # -- 2. full width: D=4 x K=8 beside the cuda engine at K=32 -----------
+    cfg8 = CONFIG.to_session(instances_per_device=MESH_FULL_K, top_capacity=TOP_CAPACITY, snapshot_cap=n)
+    full = D4MStream(cfg8, mesh=mesh)
+    check(full.n_instances == MESH_D * MESH_FULL_K, full.n_instances)
+    full.state
+    zero_counts()
+    mesh.reset_collectives()
+    wall_mesh, dropped = mesh_ingest(torch, full, R, C, V)
+    ingest_coll = dict(mesh.collectives)
+    t0 = time.perf_counter()
+    snap = full.snapshot()
+    torch.cuda.synchronize()
+    snap_ms = (time.perf_counter() - t0) * 1e3
+    mesh_counts = read_counts()
+    check(dropped == 0 and not full.overflowed(), dropped)
+    check(sum(ingest_coll.values()) == 0, ("collectives on the update path", ingest_coll))
+    check(mesh_counts["hier_cascade"] == MESH_D * STEPS and mesh_counts["sort_dedup"] >= MESH_D * STEPS
+          and mesh_counts["merge_add"] > 0, mesh_counts)
+    snapshot_holds_counts(torch, np, snap, data, f"mesh D={MESH_D} x K={MESH_FULL_K}")
+    casc = full.engine.cascades_per_instance(full.state).cpu()
+    check(bool((casc[:, 1] > 0).all()), casc)
+    log(f"[mesh] D={MESH_D} x K={MESH_FULL_K} ({full.plan.total_bytes / 1e9:.2f} GB): {STEPS} groups "
+        f"in {wall_mesh:.3f} s = {n_edges / wall_mesh:,.0f} updates/s, launches {mesh_counts}; "
+        f"global snapshot {snap_ms:.1f} ms == numpy's keys and counts; cascades per layer "
+        f"{casc.sum(0).tolist()}")
+    del snap
+    free(torch)
+    cfg32 = CONFIG.to_session(instances_per_device=MESH_D * MESH_FULL_K, top_capacity=TOP_CAPACITY,
+                              snapshot_cap=n)
+    flat = D4MStream(cfg32)
+    check(flat.kind == "cuda", flat.kind)
+    flat.state
+    zero_counts()
+    wall_flat, dropped = mesh_ingest(torch, flat, R, C, V)
+    flat_counts = read_counts()
+    check(dropped == 0 and flat_counts["hier_cascade"] == STEPS, (dropped, flat_counts))
+    err = max(err, shards_vs_packed(torch, full.state, flat.state,
+                                    f"mesh D={MESH_D} x K={MESH_FULL_K} vs cuda K={MESH_D * MESH_FULL_K}"))
+    log(f"[mesh] cuda engine K={MESH_D * MESH_FULL_K}: {STEPS} groups in {wall_flat:.3f} s = "
+        f"{n_edges / wall_flat:,.0f} updates/s, launches {flat_counts}; its state == the mesh's "
+        f"(bit-identical)")
+    del full, flat
+    free(torch)
+
+    # -- 3. ShardedAssoc: one global array, key-range sharded ------------------
+    sa = distributed.ShardedAssoc(mesh, "data", CONFIG.cuts, SHARDED_TOP, CONFIG.group_size,
+                                  key_space=SHARDED_KEY_SPACE)
+    steps = [(R[g:g + MESH_D], C[g:g + MESH_D], V[g:g + MESH_D]) for g in range(0, STEPS, MESH_D)]
+    check(len(steps) == SHARDED_STEPS, len(steps))
+    states = {}
+    for mode in ("kernels", "plain"):
+        h = sa.init_state()
+        torch.cuda.synchronize()
+        zero_counts()
+        mesh.reset_collectives()
+        ctx = kernels.plain_versions() if mode == "plain" else contextlib.nullcontext()
+        with ctx:
+            dropped = torch.zeros((), dtype=torch.int64, device=devs[0])
+            t0 = time.perf_counter()
+            for r, c, v in steps:
+                h, d = sa.update(h, r, c, v)
+                dropped += d
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        coll = dict(mesh.collectives)
+        counts = read_counts()
+        check(int(dropped) == 0, (mode, int(dropped)))
+        check(coll["all-to-all"] == 3 * SHARDED_STEPS and coll["all-reduce"] == SHARDED_STEPS
+              and sum(coll.values()) == 4 * SHARDED_STEPS, coll)
+        states[mode] = (h, wall, counts)
+        log(f"[sharded] {mode}: {SHARDED_STEPS} steps of {MESH_D} x {CONFIG.group_size:,} records in "
+            f"{wall:.3f} s = {n_edges / wall:,.0f} updates/s, launches {counts}, collectives {coll}")
+    h, sa_wall, sa_counts = states["kernels"]
+    check(sa_counts["sort_dedup"] >= MESH_D * SHARDED_STEPS and sa_counts["merge_add"] > 0, sa_counts)
+    check(sum(states["plain"][2].values()) == 0, ("plain_versions() launched a kernel", states["plain"][2]))
+    for d in range(MESH_D):
+        err = max(err, compare(torch, h[d], states["plain"][0][d], f"ShardedAssoc shard {d}: kernels vs plain"))
+    del states["plain"]
+    per_shard = [int(sum(l.nnz for l in hd.layers)) for hd in h]
+    # get against numpy's counts, on sampled keys and as many absent ones
+    rng = np.random.default_rng(1)
+    pick = rng.choice(n, SHARDED_QUERIES, replace=False)
+    keys = data["keys"][pick]
+    qr = np.concatenate([keys >> 32, rng.integers(0, SHARDED_KEY_SPACE, SHARDED_QUERIES)]).astype(np.int32)
+    qc = np.concatenate([keys & 0xFFFFFFFF, SHARDED_KEY_SPACE + rng.integers(0, 1000, SHARDED_QUERIES)]
+                        ).astype(np.int32)
+    want = np.concatenate([data["counts"][pick], np.zeros(SHARDED_QUERIES)]).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sa.get(h, torch.from_numpy(qr), torch.from_numpy(qc))
+    torch.cuda.synchronize()
+    get_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(got.cpu().numpy(), want), "ShardedAssoc.get == numpy's counts")
+    # the exchange alone: one step's buckets through the three all_to_alls
+    r, c, v = steps[0]
+    buckets = [distributed.bucket_by_owner_sorted(r[i].to(devs[i]), c[i].to(devs[i]), v[i].to(devs[i]),
+                                                   MESH_D, SHARDED_KEY_SPACE, sa.slot_cap, sa.sr)
+               for i in range(MESH_D)]
+    mesh.reset_collectives()
+    a2a_ms = time_host(torch, np, lambda: [mesh.all_to_all([b[j] for b in buckets], "data")
+                                           for j in range(3)])
+    step_ms = sa_wall / SHARDED_STEPS * 1e3
+    log(f"[sharded] distinct keys a shard {per_shard} (sum {sum(per_shard):,} >= {n:,} distinct: "
+        f"layers may repeat a key); get of {2 * SHARDED_QUERIES:,} keys {get_ms:.1f} ms == numpy's "
+        f"counts; the three all_to_alls {a2a_ms:.3f} ms of a {step_ms:.3f} ms step "
+        f"({a2a_ms / step_ms:.1%}); shards == plain versions (bit-identical)")
+    del h, states, buckets
+    free(torch)
+
+    colls = bench_scaling.update_path_collectives(MESH_D, k_per_device=4)
+    check(sum(colls.values()) == 0, colls)
+    wall_phase = time.perf_counter() - t_phase
+    log(f"[mesh] update_path_collectives (D={MESH_D}, K=4) {colls}; phase {wall_phase:.1f} s")
+    return {
+        "err": err,
+        "devices": [str(d) for d in devs],
+        "distinct_devices": mesh.distinct_devices(),
+        "rates": {f"mesh_D{MESH_D}_K{MESH_K}": small["rate"],
+                  f"mesh_D{MESH_D}_K{MESH_FULL_K}": n_edges / wall_mesh,
+                  f"cuda_K{MESH_D * MESH_FULL_K}": n_edges / wall_flat,
+                  "sharded_assoc": n_edges / sa_wall},
+        "mesh_snapshot_ms": snap_ms,
+        "sharded": {"step_ms": step_ms, "all_to_all_ms": a2a_ms, "all_to_all_share": a2a_ms / step_ms,
+                    "get_ms": get_ms, "keys_per_shard": per_shard},
+        "update_path_collectives": colls,
+        "launches": {"mesh": mesh_counts, "mesh_parity": small["launches"], "sharded_assoc": sa_counts},
+        "phase_s": wall_phase,
     }
 
 
@@ -1731,7 +1992,7 @@ BENCH_CORRECT = {
     "fleet": ("conserved", "nnz_exact", "values_exact"),
 }
 #: the params that name a rate in the [bench-metrics] line
-BENCH_LABEL_KEYS = ("k", "k_per_device", "engine", "schedule", "hosts", "n", "V")
+BENCH_LABEL_KEYS = ("k", "k_per_device", "n_devices", "engine", "schedule", "hosts", "n", "V")
 
 
 def _bench_label(m) -> str:
@@ -2378,6 +2639,7 @@ def main() -> int:
     scatter_err = phase_parity_scatter(torch, np)
     data = phase_data(torch, np)
     sess8, main_run = phase_main(torch, np, data)
+    mesh = phase_mesh(torch, np, data, sess8)
     bf16_err = phase_bf16_ingest(torch, np, data)
     types_err, types_launches = phase_value_types(torch, np, data)
     read = phase_read_side(torch, np, sess8, data)
@@ -2415,10 +2677,10 @@ def main() -> int:
              "serve_single": served["single"]["launches"],
              "serve_loopback": served["loopback"]["launches"], "value_types": types_launches,
              "algebra": algebra["launches"], "embed_grad": embed["launches"],
-             "fleet": fleet["launches"],
+             "fleet": fleet["launches"], **mesh["launches"],
              **{f"bench_{sec}": c for sec, c in bench["launches"].items()}}
     err = max(ops_err, main_run["err"], read["err"], single["err"], algebra["err"], served["err"],
-              types_err)
+              types_err, mesh["err"])
 
     def launches(kernel):
         by_path = {p: c[kernel] for p, c in paths.items()}
@@ -2434,7 +2696,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/hier_cascade/kernel.py:168",
         "launches": launches("hier_cascade")[0],
         "launches_by_path": launches("hier_cascade")[1],
-        "max_abs_err": max(parity_err, main_run["err"], bf16_err, types_err),
+        "max_abs_err": max(parity_err, main_run["err"], bf16_err, types_err, mesh["err"]),
         "ms": main_run["ms"],
         "plain_ms": main_run["plain_ms"],
         "bound_ms": main_run["bound_ms"],
@@ -2548,6 +2810,7 @@ def main() -> int:
         "controller_chunk_ms": fleet["host_costs"],
         "launches": fleet["launches"],
     }))
+    log("[mesh-metrics] " + json.dumps({"card": card, **{k: v for k, v in mesh.items() if k != "err"}}))
     log("[bench-metrics] " + json.dumps({
         "card": card,
         "wall_s": bench["wall_s"],

@@ -263,12 +263,18 @@ class CheckpointManager:
         self,
         state_like,
         step: Optional[int] = None,
+        shardings=None,
         fallback: Optional[bool] = None,
     ) -> Tuple[Any, Dict[str, Any]]:
         """Restore into the structure of ``state_like``: owned numpy leaves
         as saved (any width; bfloat16 as its ``|V2`` words), which the
         caller places (``D4MStream.restore`` cuts or pads the layers to its
-        own widths and moves them to its device).
+        own widths and moves them to its device).  With ``shardings`` (a
+        :class:`repro_torch.core.mesh.NamedSharding`, or a tree of them
+        with the state's structure down to them: an elastic restart onto
+        another mesh) each leaf comes back placed instead, a
+        :class:`~repro_torch.core.mesh.Sharded` whose chunks went from the
+        host copy straight to their devices, into buffers of their own.
 
         ``fallback=True`` walks back past damaged generations to the newest
         one that verifies; ``False`` raises :class:`CheckpointDamaged` on
@@ -296,6 +302,10 @@ class CheckpointManager:
                 if not fallback:
                     raise
                 continue
+            if shardings is not None:
+                from repro_torch.core.mesh import device_put
+
+                state = device_put(state, shardings, copy=True)
             return state, manifest["extra"] | {"step": manifest["step"]}
         raise CheckpointDamaged(
             f"all {len(candidates)} checkpoint generation(s) in {self.dir} "

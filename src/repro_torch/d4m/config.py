@@ -6,8 +6,9 @@ The wire form is the reference's, both ways: :meth:`StreamConfig.from_dict`
 takes the reference's dict unchanged, and :meth:`StreamConfig.to_dict`
 writes one the reference reads.  The reference's ``engine="pallas"`` (its
 TPU kernel engine) names the port's kernel engine, ``"cuda"``: ``from_dict``
-maps it there and ``to_dict`` writes it back.  The ``mesh`` engine is not
-ported yet: a resolved ``mesh`` engine raises ``NotImplementedError``.
+maps it there and ``to_dict`` writes it back.  ``devices=D > 1`` resolves
+to the ``mesh`` engine, D shards of K instances
+(:class:`~repro_torch.core.multistream.MultiStreamEngine`).
 """
 from __future__ import annotations
 
@@ -208,8 +209,12 @@ class StreamConfig:
             )
         return geometric_cuts(self.c1, self.cut_ratio, self.n_layers)
 
-    def resolved_devices(self) -> int:
+    def resolved_devices(self, device: str | torch.device = "cuda") -> int:
+        """``devices``, where ``None`` means every device of ``device``'s
+        kind: ``torch.cuda.device_count()`` on the card, 1 on the CPU."""
         if self.devices is None:
+            if torch.device(device).type == "cpu":
+                return 1
             return max(1, torch.cuda.device_count())
         return int(self.devices)
 
@@ -289,9 +294,9 @@ class StreamConfig:
             kw["serve"] = ServeConfig.from_dict(kw["serve"])
         return cls(**kw).validate()
 
-    def _engine_fits(self, engine: str) -> bool:
+    def _engine_fits(self, engine: str, device: str | torch.device = "cuda") -> bool:
         """Whether ``engine`` is structurally valid for this K/D shape."""
-        d = self.resolved_devices()
+        d = self.resolved_devices(device)
         if engine == "single":
             return self.instances_per_device == 1 and d == 1
         if engine in ("packed", "cuda"):
@@ -305,10 +310,10 @@ class StreamConfig:
         ``REPRO_D4M_ENGINE`` environment variable (the reference's names,
         ``"pallas"`` read as ``"cuda"``), when it fits the K/D shape (an
         override that does not fit is ignored; an unknown name raises
-        ``ValueError``); then the shape heuristics: K>1 picks the ``cuda``
-        kernel engine on a CUDA device and the branchless ``packed`` engine
-        on the CPU, and K=1 picks ``single``.  ``mesh`` (D>1) is not ported
-        yet and raises ``NotImplementedError``.
+        ``ValueError``); then the shape heuristics: ``mesh`` at D>1 (D
+        shards of K instances); at D=1, K>1 picks the ``cuda`` kernel engine
+        on a CUDA device and the branchless ``packed`` engine on the CPU,
+        and K=1 picks ``single``.
         """
         self.validate()
         engine = self.engine
@@ -317,16 +322,14 @@ class StreamConfig:
             env = ENGINE_ALIASES.get(raw, raw)
             if env and env not in ENGINES:
                 raise ValueError(f"{ENGINE_ENV_VAR}={raw!r} is not one of {ENGINES}")
-            if env and env != "auto" and self._engine_fits(env):
+            if env and env != "auto" and self._engine_fits(env, device):
                 engine = env
-            elif self.resolved_devices() > 1:
+            elif self.resolved_devices(device) > 1:
                 engine = "mesh"
             elif self.instances_per_device > 1:
                 engine = "cuda" if torch.device(device).type == "cuda" else "packed"
             else:
                 engine = "single"
-        if engine == "mesh":
-            raise NotImplementedError("the mesh engine (devices > 1) is not ported yet")
         return engine
 
     # -- capacity planning ---------------------------------------------------

@@ -1,6 +1,6 @@
 """The D4M streaming session (port of ``repro.d4m.session``).
 
-:class:`D4MStream` runs one of three engines, picked from its
+:class:`D4MStream` runs one of four engines, picked from its
 :class:`~repro_torch.d4m.config.StreamConfig` and its device:
 
 * ``single``: K=1, the cond cascade (:func:`hierarchical.update_triples`),
@@ -10,7 +10,14 @@
   (:func:`multistream.packed_update`), the choice on the CPU;
 * ``cuda``: K>=1, the lane-skipping ``hier_cascade`` kernel
   (:mod:`repro_torch.kernels.hier_cascade`), the choice at K>1 on the card
-  (the reference's ``pallas`` engine).
+  (the reference's ``pallas`` engine);
+* ``mesh``: D>1 shards of K instances over a device mesh
+  (:class:`~repro_torch.core.multistream.MultiStreamEngine`), each shard
+  stepped on its own device by the ``cuda`` engine's step (its plain
+  version on the CPU) with no collective.  ``mesh=`` takes a
+  :class:`~repro_torch.core.mesh.Mesh`, which may repeat a device
+  (``Mesh([torch.device("cuda", 0)] * 4, ("data",))``: four shards on one
+  card); ``devices=D`` alone builds one over the first D devices.
 
 The session runs on the card unless it is given ``device="cpu"``.  The
 engines update the state eagerly; ``update`` consumes the previous state
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import analytics, assoc, hierarchical, multistream
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core.assoc import Assoc
 from repro_torch.core.hierarchical import HierAssoc
 from repro_torch.core.semiring import PLUS_TIMES, Semiring
@@ -315,11 +323,23 @@ class D4MStream:
         config: StreamConfig,
         *,
         device: str | torch.device | None = None,
+        mesh: "mesh_mod.Mesh | None" = None,
         checkpoint_dir: str | None = None,
         checkpoint_keep: int = 3,
     ):
         config.validate()
-        self.device = resolve_device(device)
+        if mesh is not None:
+            # an explicit mesh pins the device axis: fold it into the config
+            # so plan() and telemetry report the true instance count
+            first = mesh.device_list[0]
+            if device is not None and torch.device(device) != first:
+                raise ValueError(f"device={device!r} is not the mesh's first device {first}")
+            config = dataclasses.replace(config, devices=mesh.size, engine="mesh")
+            self.device = resolve_device(first)
+        else:
+            self.device = resolve_device(device)
+            if config.devices is None:
+                config = dataclasses.replace(config, devices=config.resolved_devices(self.device))
         self.config = config
         self.plan: CapacityPlan = config.plan()
         self.cuts = config.resolved_cuts()
@@ -328,7 +348,20 @@ class D4MStream:
         self.batch_size = int(config.batch_size)
         self.k_per_device = int(config.instances_per_device)
         self.kind = config.resolved_engine(self.device)
-        self.n_instances = 1 if self.kind == "single" else self.k_per_device
+        self.mesh = self.engine = None
+        if self.kind == "mesh":
+            # the first D devices of the session's kind; fewer raise ValueError
+            self.mesh = mesh if mesh is not None else mesh_mod.Mesh.over(
+                self.device.type, config.resolved_devices(self.device), config.axis_name)
+            self.device = self.mesh.device_list[0]  # where routing and snapshots run
+            self.engine = multistream.MultiStreamEngine(
+                self.mesh, self.cuts, config.top_capacity, self.batch_size,
+                instances_per_device=self.k_per_device, sr=self.sr, dtype=self.dtype,
+                branchless=config.branchless,
+            )
+            self.n_instances = self.engine.n_instances
+        else:
+            self.n_instances = 1 if self.kind == "single" else self.k_per_device
         self._ckpt_dir = checkpoint_dir
         self._ckpt_keep = checkpoint_keep
         self._mgr = None
@@ -356,6 +389,8 @@ class D4MStream:
         self._state = value
 
     def _init_state(self) -> HierAssoc:
+        if self.kind == "mesh":
+            return self.engine.init_state()
         kw = dict(
             top_capacity=self.config.top_capacity,
             batch_size=self.batch_size,
@@ -389,6 +424,8 @@ class D4MStream:
         return self._step
 
     def _tensors(self, rows, cols, vals):
+        if isinstance(rows, mesh_mod.Sharded):  # placed by shard_stream
+            return rows, cols, vals
         dev = self.device
         return (
             torch.as_tensor(rows, device=dev).to(torch.int32),
@@ -406,21 +443,27 @@ class D4MStream:
             return multistream.packed_update(
                 h, rows, cols, vals, self.cuts, self.sr, branchless=self.config.branchless
             )
+        if self.kind == "mesh":
+            return self.engine.update(h, rows, cols, vals)
         return cascade_ops.cascade_update(
             h, rows, cols, vals, self.cuts, self.plan.layer_caps, self.sr
         )
 
     # -- write side ----------------------------------------------------------
     def update(self, rows, cols, vals) -> "D4MStream":
-        """One pre-shaped batch: ``[B]`` (single) or ``[K, B]`` (packed,
-        cuda).  The previous state is consumed."""
+        """One pre-shaped batch: ``[B]`` (single), ``[K, B]`` (packed,
+        cuda) or ``[K*D, B]`` instance-major (mesh; or
+        :meth:`shard_stream`'s placement).  The previous state is consumed."""
         self.state = self._step(self.state, *self._tensors(rows, cols, vals))
         self._invalidate()
         return self
 
     def shard_stream(self, rows, cols, vals):
-        """Place pre-split ``[n_instances, B]`` triples instance-major: the
-        identity off the mesh engine, which is not ported yet."""
+        """Place pre-split ``[n_instances, B]`` triples instance-major (mesh
+        engine: each shard's ``[K, B]`` block on its device; the identity
+        elsewhere)."""
+        if self.kind == "mesh":
+            return self.engine.shard_stream(*self._tensors(rows, cols, vals))
         return rows, cols, vals
 
     def route(self, rows, cols, vals):
@@ -429,6 +472,8 @@ class D4MStream:
         rows, cols, vals = self._tensors(rows, cols, vals)
         if self.kind == "single":
             return rows, cols, vals, torch.zeros((), dtype=torch.int32, device=self.device)
+        if self.kind == "mesh":
+            return self.engine.route(rows, cols, vals)
         return multistream.route_to_instances(
             rows, cols, vals, self.n_instances, self.batch_size, self.sr
         )
@@ -442,7 +487,14 @@ class D4MStream:
 
     def ingest_stream(self, rows, cols, vals) -> torch.Tensor:
         """Ingest a whole stream: ``[T, B]`` (single) or ``[T, K, B]``
-        pre-routed.  Returns the per-step nnz trace."""
+        pre-routed.  Returns the per-step nnz trace.  Not offered on the
+        mesh engine, as in the reference: loop over :meth:`update`."""
+        if self.kind == "mesh":
+            raise NotImplementedError(
+                "ingest_stream is not available on the mesh engine; loop "
+                "over update() so every step runs the verified shard_map "
+                "program"
+            )
         rows, cols, vals = self._tensors(rows, cols, vals)
         if self.kind != "single" and (rows.ndim != 3 or rows.shape[1] != self.n_instances):
             raise ValueError(
@@ -474,6 +526,9 @@ class D4MStream:
             if per_instance:
                 raise ValueError("single-instance session has no per-instance axis")
             snap = hierarchical.snapshot(self.state, cap=cap, sr=self.sr)
+        elif self.kind == "mesh":
+            snap = (self.engine.snapshot(self.state, cap) if per_instance
+                    else self.engine.snapshot_global(self.state, cap))
         else:
             snap = multistream.snapshot_packed(self.state, cap=cap, sr=self.sr)
             if not per_instance:
@@ -501,8 +556,10 @@ class D4MStream:
     def synchronize(self) -> None:
         """Wait until every update queued on this thread's stream of the
         session's device has run (nothing to wait for on the CPU)."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        devices = self.mesh.device_list if self.mesh is not None else [self.device]
+        for dev in dict.fromkeys(devices):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
 
     def view(
         self,
@@ -564,10 +621,14 @@ class D4MStream:
 
     def nnz(self) -> int:
         """Total distinct-key upper bound across all instances."""
+        if self.kind == "mesh":
+            return int(self.engine.global_nnz(self.state))
         return int(hierarchical.nnz_total(self.state).sum())
 
     def overflowed(self) -> bool:
         """Sticky: any instance exceeded a static capacity somewhere."""
+        if self.kind == "mesh":
+            return bool(self.engine.overflowed_per_instance(self.state).any())
         return bool(hierarchical.overflowed(self.state).any())
 
     def telemetry(self) -> TelemetrySnapshot:
@@ -584,6 +645,10 @@ class D4MStream:
         if self.kind == "single":
             snap.nnz_per_layer = [int(l.nnz) for l in h.layers]
             snap.cascades = h.cascades.cpu().numpy()
+        elif self.kind == "mesh":
+            snap.nnz_per_instance = self.engine.nnz_per_instance(h).cpu().numpy()
+            snap.cascades_per_instance = self.engine.cascades_per_instance(h).cpu().numpy()
+            snap.overflowed_per_instance = self.engine.overflowed_per_instance(h).cpu().numpy()
         else:
             snap.nnz_per_instance = multistream.nnz_per_instance(h).cpu().numpy()
             snap.cascades_per_instance = h.cascades.cpu().numpy()
@@ -637,10 +702,15 @@ class D4MStream:
         this returns, behind every update queued on this thread's stream;
         serialization overlaps the next updates.  The ``cuda`` engine writes
         its layers at the reference's power-of-two widths (the tail dead),
-        so the reference's ``pallas`` engine restores it."""
+        so the reference's ``pallas`` engine restores it.  The ``mesh``
+        engine writes the reference's mesh leaves: one ``[K*D]`` packed
+        hierarchy at the true capacities, gathered from the shards' host
+        copies."""
         state = self.state
         if self.kind == "cuda":
             state = hierarchical.pad_layers_pow2(state, self.sr)
+        elif self.kind == "mesh":
+            state = multistream.gather_packed(self.engine.primaries(state), "cpu")
         self._manager().save_async(step, state, extra=extra)
 
     def wait_checkpoint(self) -> None:
@@ -656,13 +726,17 @@ class D4MStream:
         engine and the port's ``cuda`` engine pad to powers of two) must be
         dead past this session's capacity, and is cut to it; a narrower one
         is padded with dead slots.  The state comes back as owned tensors
-        on the session's device (through ``core.convert.hier_from_numpy``).
+        on the session's device (through ``core.convert.hier_from_numpy``);
+        on the mesh each shard's slice goes from the host copy straight to
+        its own device, never staging the whole state on one.
         """
         from repro_torch.core import convert
 
         mgr = self._manager()
         mgr.wait()
         like = self.state
+        if self.kind == "mesh":
+            like = self.engine.primaries(like)[0]  # the leaves' names; [K*D] on disk
         host, extra = mgr.restore(like, step=step, fallback=fallback)
         layers = []
         for i, (l, want) in enumerate(zip(host.layers, like.layers)):
@@ -677,7 +751,8 @@ class D4MStream:
                     )
                 r, c, v = r[..., :width], c[..., :width], v[..., :width]
             layers.append((r, c, v, l.nnz, l.overflow))
-        h = convert.hier_from_numpy(layers, host.cascades, device=self.device)
+        on_mesh = self.kind == "mesh"
+        h = convert.hier_from_numpy(layers, host.cascades, device="cpu" if on_mesh else self.device)
         zero = self.sr.zero_as(self.dtype)
         out = tuple(
             Assoc(
@@ -689,7 +764,10 @@ class D4MStream:
             )
             for l, want in zip(h.layers, like.layers)
         )
-        self.state = HierAssoc(layers=out, cascades=h.cascades)
+        state = HierAssoc(layers=out, cascades=h.cascades)
+        if on_mesh:
+            state = multistream.split_packed(state, self.mesh, self.engine.axes)
+        self.state = state
         self._invalidate()
         return extra
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Iterator, Tuple
 
 import numpy as np
+import torch
 
 
 def rmat_edges(
@@ -45,3 +46,23 @@ def edge_stream(
     for _ in range(total_edges // group_size):
         s, d = rmat_edges(rng, group_size, scale, a, b, c)
         yield s, d, np.ones(group_size, np.float32)
+
+
+def rmat_edges_torch(
+    gen: torch.Generator,
+    shape: Tuple[int, ...],
+    scale: int,
+    a: float = 0.57,
+    b: float = 0.19,
+    c: float = 0.19,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rmat_edges` drawn with a torch ``Generator`` on its device:
+    int32 ``(src, dst)`` tensors of ``shape``, the same quadrant rule with
+    other bits.  For streams too large to draw on the host in a run."""
+    src = torch.zeros(shape, dtype=torch.int32, device=gen.device)
+    dst = torch.zeros_like(src)
+    for _ in range(scale):
+        r = torch.rand(shape, generator=gen, device=gen.device)
+        src = src * 2 + (r >= a + b)
+        dst = dst * 2 + (((r >= a) & (r < a + b)) | (r >= a + b + c))
+    return src, dst

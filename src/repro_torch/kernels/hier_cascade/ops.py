@@ -187,19 +187,20 @@ def cascade_step_kernel(bufs, nnz, cascades, overflow, batch: Assoc, cuts, caps,
         xs = list(xs) or [0]
         return (ctypes.c_int64 * len(xs))(*[int(x) for x in xs])
 
-    err = lib.hier_cascade_step(
-        code, k, n_layers,
-        batch.rows.data_ptr(), batch.cols.data_ptr(), batch.vals.data_ptr(),
-        batch.nnz.data_ptr(), b_width,
-        ptrs([r for r, _, _ in bufs]), ptrs([c for _, c, _ in bufs]),
-        ptrs([v for _, _, v in bufs]),
-        ints(r.shape[1] for r, _, _ in bufs), ints(caps), ints(cuts),
-        nnz.data_ptr(), cascades.data_ptr(), overflow.data_ptr(),
-        out_rows.data_ptr(), out_cols.data_ptr(), out_vals.data_ptr(), width,
-        splits, counts, offsets, rec.data_ptr(), done, tiles, sr.fold,
-        _launch.zero_bits(sr.zero, dt), _launch.sm_count(_launch.index(dev)),
-        ctypes.byref(launches), _launch.stream(dev),
-    )
+    with torch.cuda.device(dev):  # the entry launches on the current device
+        err = lib.hier_cascade_step(
+            code, k, n_layers,
+            batch.rows.data_ptr(), batch.cols.data_ptr(), batch.vals.data_ptr(),
+            batch.nnz.data_ptr(), b_width,
+            ptrs([r for r, _, _ in bufs]), ptrs([c for _, c, _ in bufs]),
+            ptrs([v for _, _, v in bufs]),
+            ints(r.shape[1] for r, _, _ in bufs), ints(caps), ints(cuts),
+            nnz.data_ptr(), cascades.data_ptr(), overflow.data_ptr(),
+            out_rows.data_ptr(), out_cols.data_ptr(), out_vals.data_ptr(), width,
+            splits, counts, offsets, rec.data_ptr(), done, tiles, sr.fold,
+            _launch.zero_bits(sr.zero, dt), _launch.sm_count(_launch.index(dev)),
+            ctypes.byref(launches), _launch.stream(dev),
+        )
     cuda_launch_count += launches.value
     _launch.raise_on(err, lib, "hier_cascade", "hier_cascade")
     launch_count += 1

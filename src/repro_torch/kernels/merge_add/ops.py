@@ -99,16 +99,17 @@ def merge_add_kernel(a: Assoc, b: Assoc, cap: int | None, sr: Semiring) -> Assoc
     splits, counts, offsets, done = _launch.merge_scratch(dev, g, tiles)
     lib = _lib()
     launches = ctypes.c_int(0)
-    err = lib.merge_add_run(
-        code, g,
-        ar.data_ptr(), ac.data_ptr(), av.data_ptr(), a_nnz.data_ptr(), a_ov.data_ptr(), m,
-        br.data_ptr(), bc.data_ptr(), bv.data_ptr(), b_nnz.data_ptr(), b_ov.data_ptr(), n,
-        out.rows.data_ptr(), out.cols.data_ptr(), out.vals.data_ptr(),
-        out.nnz.data_ptr(), out.overflow.data_ptr(), cap,
-        splits, counts, offsets, done, tiles,
-        sr.fold, _launch.zero_bits(sr.zero, dt), _launch.sm_count(_launch.index(dev)),
-        ctypes.byref(launches), _launch.stream(dev),
-    )
+    with torch.cuda.device(dev):  # the entry launches on the current device
+        err = lib.merge_add_run(
+            code, g,
+            ar.data_ptr(), ac.data_ptr(), av.data_ptr(), a_nnz.data_ptr(), a_ov.data_ptr(), m,
+            br.data_ptr(), bc.data_ptr(), bv.data_ptr(), b_nnz.data_ptr(), b_ov.data_ptr(), n,
+            out.rows.data_ptr(), out.cols.data_ptr(), out.vals.data_ptr(),
+            out.nnz.data_ptr(), out.overflow.data_ptr(), cap,
+            splits, counts, offsets, done, tiles,
+            sr.fold, _launch.zero_bits(sr.zero, dt), _launch.sm_count(_launch.index(dev)),
+            ctypes.byref(launches), _launch.stream(dev),
+        )
     cuda_launch_count += launches.value
     _launch.raise_on(err, lib, "merge_add", "merge_add")
     launch_count += 1

@@ -102,10 +102,11 @@ def scatter_add_kernel(ids: torch.Tensor, rows: torch.Tensor, table: torch.Tenso
     ids, rows = ids.contiguous(), rows.contiguous()
     vectors = d % 8 == 0 and rows.data_ptr() % 16 == 0 and table.data_ptr() % 16 == 0
     lib = _lib()
-    err = lib.scatter_add_run(
-        t_code, r_code, ids.data_ptr(), rows.data_ptr(), table.data_ptr(),
-        k, nrows, d, int(vectors), _launch.stream(dev),
-    )
+    with torch.cuda.device(dev):  # the entry launches on the current device
+        err = lib.scatter_add_run(
+            t_code, r_code, ids.data_ptr(), rows.data_ptr(), table.data_ptr(),
+            k, nrows, d, int(vectors), _launch.stream(dev),
+        )
     _launch.raise_on(err, lib, "scatter_add", "scatter_add")
     launch_count += 1
     return table

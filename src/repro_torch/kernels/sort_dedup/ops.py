@@ -167,17 +167,18 @@ def _launch_kernel(rows, cols, vals, cap, sr, valid, *, sort: bool) -> Assoc:
     lib = _lib()
     launches = ctypes.c_int(0)
     common = (sr.fold, _launch.zero_bits(sr.zero, vals.dtype), ctypes.byref(launches), stream)
-    if sort:
-        ok = None if valid is None else _launch.flat(valid, g, n, torch.bool).data_ptr()
-        err = lib.sort_dedup_from_triples(
-            code, g, n, r.data_ptr(), c.data_ptr(), v.data_ptr(), ok, *outs, cap,
-            work, zeroed, *common,
-        )
-    else:
-        err = lib.sort_dedup_combine(
-            code, g, n, r.data_ptr(), c.data_ptr(), v.data_ptr(), *outs, cap,
-            work, zeroed, *common,
-        )
+    ok = None if valid is None else _launch.flat(valid, g, n, torch.bool).data_ptr()
+    with torch.cuda.device(dev):  # the entry launches on the current device
+        if sort:
+            err = lib.sort_dedup_from_triples(
+                code, g, n, r.data_ptr(), c.data_ptr(), v.data_ptr(), ok, *outs, cap,
+                work, zeroed, *common,
+            )
+        else:
+            err = lib.sort_dedup_combine(
+                code, g, n, r.data_ptr(), c.data_ptr(), v.data_ptr(), *outs, cap,
+                work, zeroed, *common,
+            )
     cuda_launch_count += launches.value
     _launch.raise_on(err, lib, "sort_dedup", "sort_dedup")
     launch_count += 1

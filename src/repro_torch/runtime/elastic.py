@@ -1,23 +1,30 @@
-"""Elastic scaling: liveness and the mesh plan (port of
-``repro.runtime.elastic``).
+"""Elastic scaling: rebuild the mesh from surviving devices and re-shard
+(port of ``repro.runtime.elastic``).
 
 Failure model: a pod/node drops out (heartbeat loss); the controller
-chooses the largest viable mesh from the surviving device list
-(``plan_mesh``): the data axis shrinks (DP degree is elastic), the model
-axis is preserved (TP degree is a property of the compiled program).
+1. chooses the largest viable mesh from the surviving device list
+   (``plan_mesh``): the data axis shrinks (DP degree is elastic), the model
+   axis is preserved (TP degree is a property of the compiled program);
+2. restores the latest checkpoint with the *new* sharding
+   (``CheckpointManager.restore(..., shardings=new)``), or, if the state is
+   still live, re-shards it in place (``reshard_state``);
+3. rescales the data pipeline (global batch per shard) and resumes.
 
 ``Heartbeat`` is the liveness primitive: workers ping; the controller
 declares death after ``timeout`` (:class:`repro_torch.fleet.FleetController`
 arms one per worker).  All of this is host-side orchestration, testable on
-the CPU by simulating device loss.  The reference's ``rebuild_mesh`` and
-``reshard_state`` build a device mesh and re-place state on it; they come
-with the port's multi-GPU mesh.
+the CPU by simulating device loss.  The meshes are the port's
+(:class:`repro_torch.core.mesh.Mesh`, one process holding every device).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core.mesh import Mesh, NamedSharding, device_put, tree_map
 
 
 @dataclasses.dataclass
@@ -39,6 +46,25 @@ def plan_mesh(
     if data < cfg.min_data_axis:
         raise RuntimeError("insufficient devices for minimum data parallelism")
     return data, model
+
+
+def rebuild_mesh(devices: Sequence, cfg: ElasticConfig = ElasticConfig()) -> Mesh:
+    """A ``("data", "model")`` mesh of the largest grid ``plan_mesh``
+    finds in ``devices``."""
+    data, model = plan_mesh(len(devices), cfg)
+    grid = np.asarray(list(devices[: data * model]), dtype=object).reshape(data, model)
+    return Mesh(grid, ("data", "model"))
+
+
+def reshard_state(state, mesh: Mesh, spec_fn):
+    """Re-place live state onto a new mesh (``spec_fn(mesh, state)`` gives
+    a tree of :class:`~repro_torch.core.mesh.PartitionSpec` with
+    ``state``'s structure down to them): a tree of
+    :class:`~repro_torch.core.mesh.Sharded` leaves, each device's blocks
+    in buffers of its own."""
+    specs = spec_fn(mesh, state)
+    shardings = tree_map(lambda s, _: NamedSharding(mesh, s), specs, None)
+    return device_put(state, shardings, copy=True)
 
 
 class Heartbeat:

@@ -1005,7 +1005,8 @@ def test_port_committed_specs_validate(spec):
     for leg in loaded.legs:
         port_bench.validate_leg_params(leg)
         if leg.section == "scaling":
-            assert leg.kwargs()["device_sweep"] is False
+            # the card's spec runs the D axis on the mesh engine
+            assert leg.kwargs()["device_sweep"] is (spec == "chip.json")
 
 
 def test_run_spec_passes_the_device(monkeypatch):

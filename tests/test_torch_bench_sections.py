@@ -7,11 +7,12 @@ the port's result, on an empty history and against the run itself.  The
 correctness fields hold: ``hier``'s snapshot per cut schedule holds numpy's
 distinct keys of the stream with each key's count as its value, streams
 are conserved, ``bit_identical`` and ``scrape_exact`` are true.  The knobs
-the chip's full-width spec turns run here at tiny sizes too.  The scaling section's D axis raises until the
-mesh is ported.  (Nothing here runs a JAX function: the reference's bench
-library is plain Python.)
+the chip's full-width spec turns run here at tiny sizes too, the scaling
+section's D axis on the mesh engine among them.  (Nothing here runs a JAX
+function: the reference's bench library is plain Python.)
 """
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -253,11 +254,30 @@ def test_holds_counts_checks_every_key_and_value():
     assert not _common.holds_counts(short, want)
 
 
-def test_scaling_d_axis_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="A6"):
-        bench_scaling.main(k_values=(1,), groups=2, device_sweep=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        bench_scaling.update_path_collectives()
+def test_scaling_d_axis_waits_for_the_mesh(tmp_path, monkeypatch):
+    """The D axis no longer waits: it runs on the mesh engine at every D,
+    1, 2, 4 and 8 shards on the one CPU device, at the section's group
+    size and scale over ``device_groups`` steps, each shard's snapshot its
+    stream's distinct keys, the update path free of collectives, the
+    artifact read by both packages' parsers."""
+    monkeypatch.setenv("BENCH_JSON_DIR", str(tmp_path))
+    bench_scaling.main(k_values=(1, 4), groups=2, group_size=24, scale=10, device_sweep=True,
+                       device="cpu", device_groups=3)
+    path = str(tmp_path / "BENCH_scaling.json")
+    assert ref_bench.parse_section_file(path).section == port_bench.parse_section_file(path).section
+    ms = {(m["name"], m["params"].get("n_devices"), m["params"].get("k_per_device")): m
+          for m in json.loads((tmp_path / "BENCH_scaling.json").read_text())["measurements"]}
+    for d in bench_scaling.MESH_SHARDS:
+        row = ms[("device_scaling", d, 1)]
+        assert row["params"]["engine"] == "mesh"
+        assert (row["params"]["groups"], row["params"]["group_size"], row["params"]["rmat_scale"]) \
+            == (3, 24, 10)
+        assert row["params"]["distinct_devices"] == 1 and row["nnz_exact"] is True
+    none = dict.fromkeys(("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                          "collective-permute"), 0)
+    colls = ms[("update_path_collectives", 8, 4)]
+    assert colls["passed"] is True and {k: colls[k] for k in none} == none
+    assert bench_scaling.update_path_collectives(2, device="cpu") == none
 
 
 def test_sections_want_cuda_unless_told(monkeypatch):

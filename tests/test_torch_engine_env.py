@@ -19,8 +19,6 @@ def _resolve(cfg, *args):
         return cfg.resolved_engine(*args)
     except ValueError:
         return "ValueError"
-    except NotImplementedError:
-        return "mesh"  # the port does not run the mesh engine yet
 
 
 @pytest.mark.parametrize("value", [None, "pallas", "cuda", "packed", "single", "auto", "mesh",
@@ -60,10 +58,14 @@ def test_env_override_cases_of_the_reference(monkeypatch):
     explicit = td4m.StreamConfig(cuts=(8,), top_capacity=64, batch_size=8,
                                  instances_per_device=4, engine="packed")
     assert explicit.resolved_engine("cpu") == "packed"
-    # a resolved mesh still raises until the mesh is ported
+    # the variable may pick the mesh engine, as in the reference, and a
+    # session builds on it (one shard of K=4 here)
     monkeypatch.setenv(ENGINE_ENV_VAR, "mesh")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cfg.resolved_engine("cpu")
+    assert cfg.resolved_engine("cpu") == "mesh"
+    assert jd4m.StreamConfig(cuts=(8,), top_capacity=64, batch_size=8,
+                             instances_per_device=4).resolved_engine() == "mesh"
+    sess = td4m.D4MStream(cfg, device="cpu")
+    assert sess.kind == "mesh" and sess.n_instances == 4 and sess.mesh.size == 1
 
 
 def test_session_takes_the_override(monkeypatch):

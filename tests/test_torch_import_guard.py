@@ -42,7 +42,9 @@ for name in ("repro_torch.kernels.merge_add.ops", "repro_torch.kernels.sort_dedu
              "repro_torch.benchmarks.bench_cascade_kernel", "repro_torch.benchmarks.bench_scaling",
              "repro_torch.benchmarks.bench_embed_grad", "repro_torch.benchmarks.bench_serve",
              "repro_torch.benchmarks.bench_query", "repro_torch.benchmarks.bench_obs",
-             "repro_torch.benchmarks.bench_fleet"):
+             "repro_torch.benchmarks.bench_fleet",
+             "repro_torch.core.mesh", "repro_torch.core.distributed",
+             "repro_torch.core.streaming"):
     assert name in names, name
 print(len(names))
 """
@@ -58,7 +60,7 @@ def test_every_module_imports_without_jax():
         [sys.executable, "-c", _CHILD], env=env, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 90
+    assert int(out.stdout.strip().splitlines()[-1]) >= 94
 
 
 def test_no_source_names_jax_or_repro():

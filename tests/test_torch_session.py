@@ -144,8 +144,15 @@ def test_constructors_default_to_the_card(monkeypatch, build):
 
 
 def test_config_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        td4m.StreamConfig(cuts=(8,), top_capacity=64, batch_size=8, devices=2).resolved_engine("cpu")
+    # devices > 1 resolves to the mesh engine, as in the reference, and a
+    # session builds on a mesh of two shards
+    two = td4m.StreamConfig(cuts=(8,), top_capacity=64, batch_size=8, devices=2)
+    assert two.resolved_engine("cpu") == "mesh"
+    assert jd4m.StreamConfig(cuts=(8,), top_capacity=64, batch_size=8, devices=2).resolved_engine() == "mesh"
+    from repro_torch.core.mesh import Mesh
+
+    sess = td4m.D4MStream(two, mesh=Mesh([torch.device("cpu")] * 2, ("data",)))
+    assert sess.kind == "mesh" and sess.n_instances == 2
     with pytest.raises(ValueError, match="must not exceed"):
         td4m.StreamConfig(
             cuts=(8,), top_capacity=64, batch_size=8, serve=td4m.ServeConfig(max_batch=16)
