@@ -26,9 +26,22 @@ Phases, each of which asserts (any failure exits non-zero):
    tails, NaN and -0.0 with row 0 live or dead (C10), negative and
    out-of-range ids, k = 0, d of 1, 3 and 4096, a misaligned table, and the
    embedding path's own shape;
-4. make the R-MAT stream once (200 groups of 100,000 scale-20 edges,
+4. LM serving (``phase_lm``, ``repro_torch.models`` and the
+   ``serve_lm`` example's path): h2o-danube3-4b at its published width and
+   depth (24 layers, d_model 3840, bfloat16 compute over 15.8 GB of
+   float32 master weights made on the card) generates 128 tokens for 16
+   prompts of 16 (timed, beside ``analysis.flops.decode_bytes`` over the
+   HBM rate); the example's telemetry leg serves the generated bigram
+   graph over a loopback socket into a K=4 ``cuda`` ``D4MStream.serve``
+   (``sort_dedup``, ``hier_cascade``, ``merge_add`` counted), drained,
+   checkpointed, restored bit-identically, its snapshot numpy's counts;
+   decode against forward in float32 at full width (h2o-danube3-4b,
+   mamba2-1.3b, deepseek-v3 at 3 layers with MLA both ways, phi3.5-moe at
+   2 layers) by the reference's criterion; the ten architectures at
+   ``reduced()`` size, the card's logits against the CPU port's;
+5. make the R-MAT stream once (200 groups of 100,000 scale-20 edges,
    ``configs/d4m_stream.CONFIG``) and count it with numpy;
-5. the ``cuda`` engine at full width: K=8 hash-routed instances of the
+6. the ``cuda`` engine at full width: K=8 hash-routed instances of the
    paper's instance shape (cuts 100k/1M/10M, top capacity 16,000,000
    each) through ``D4MStream(cfg).ingest``, 200 ``sort_dedup`` calls and
    200 ``hier_cascade`` launches; replay the same routed batches through
@@ -37,9 +50,9 @@ Phases, each of which asserts (any failure exits non-zero):
    and through the plain versions, and require all three states
    bit-identical; then 120 groups in bfloat16 through the kernels and
    inside ``kernels.plain_versions()``, bit-identical;
-6. the mesh engine (``MultiStreamEngine`` through ``D4MStream(cfg,
+7. the mesh engine (``MultiStreamEngine`` through ``D4MStream(cfg,
    mesh=Mesh(...))``): D=4 shards on ``cuda:0`` (``cuda:0..3`` on a machine
-   with four cards).  D=4 x K=2 over the stream, bit-identical to step 5's
+   with four cards).  D=4 x K=2 over the stream, bit-identical to step 6's
    K=8 state and, inside ``kernels.plain_versions()``, to the plain
    versions (state and global snapshot); D=4 x K=8 (32 instances, 15.3 GB)
    over the stream, its updates/s beside the ``cuda`` engine's at K=32 in
@@ -50,23 +63,23 @@ Phases, each of which asserts (any failure exits non-zero):
    ``all-to-all`` and 1 ``all-reduce`` an update, kernels against plain
    versions bit for bit; no collective on the mesh's update path; a
    ``[mesh-metrics]`` line holds the rates;
-7. the read side: the K=8 snapshot and ``query.degrees`` through the
+8. the read side: the K=8 snapshot and ``query.degrees`` through the
    kernels and inside ``kernels.plain_versions()``, bit-identical, checked
    against numpy's distinct count and ``bincount``;
-8. the ``single`` engine (K=1, ``CONFIG`` unchanged: top capacity 140 M)
+9. the ``single`` engine (K=1, ``CONFIG`` unchanged: top capacity 140 M)
    at full width, through the kernels and inside ``plain_versions()``,
    bit-identical, every cascade level firing;
-9. per-call times of ``sort_dedup`` and ``merge_add`` at the main paths'
+10. per-call times of ``sort_dedup`` and ``merge_add`` at the main paths'
    shapes (``sort_dedup``: both engines' batches, the degrees' fold stage
    and its longest run, with the CUDA launches and the wrapper's host ms a
    call; ``merge_add``: the layer-1 merge, the snapshot merges and the
    ``single`` engine's last 1->2, 2->3 and 3->4 cascade merges), with
    their byte bounds (dead-tail bytes apart), plain versions and
    ``torch.sort`` of the same keys as a reference;
-10. the algebra and graph queries on a uniform random graph (2^16
+11. the algebra and graph queries on a uniform random graph (2^16
    vertices, 500,000 edges, ``max_fanout`` 64), kernels against plain bit
    for bit, triangles against scipy's ``trace(A^3)/6``;
-11. the embedding-gradient path at granite-3-8b's full width (after the
+12. the embedding-gradient path at granite-3-8b's full width (after the
     streaming phases' state is freed): one optimizer window of 256
     microbatches of 4096 tokens (``TokenStream``, Zipf 1.3) into the
     hierarchical row accumulator, ``hier_flush``, ``dense_grad_of``
@@ -77,7 +90,7 @@ Phases, each of which asserts (any failure exits non-zero):
     distinct count;
     then ``scatter_add`` alone at that shape, with its bound, plain version
     and ``index_add_`` of the live prefix as a yardstick;
-12. the fleet (``repro_torch.fleet``, after the serve phases, with this
+13. the fleet (``repro_torch.fleet``, after the serve phases, with this
     process's streaming state freed first): N = 1, 2 and 4 worker
     processes, each a full-width ``cuda`` session (K=8, ``CONFIG``) fed its
     host-tier shard of the 200 groups by ``FleetController.run``; N=4
@@ -88,7 +101,7 @@ Phases, each of which asserts (any failure exits non-zero):
     snapshot, at N=4 also inside ``plain_versions()``; every worker
     reports its own ``hier_cascade``, ``sort_dedup`` and ``merge_add``
     launches; a ``[fleet-metrics]`` line holds the rates;
-13. the port's benchmark suite (after the fleet, this process's streaming
+14. the port's benchmark suite (after the fleet, this process's streaming
     state freed): ``python -m repro_torch.benchmarks.run --experiment
     src/repro_torch/benchmarks/experiments/chip.json`` in a subprocess, all
     nine sections at full width (``hier`` at the paper's 100 M edges; the
@@ -101,7 +114,7 @@ Phases, each of which asserts (any failure exits non-zero):
     launched; a ``[bench-metrics]`` line holds
     its rates and verdicts, and the ``kernels`` line its launches as
     ``bench_<section>`` paths;
-14. print a ``{"kernels": [...]}`` line, the card's name and power limit,
+15. print a ``{"kernels": [...]}`` line, the card's name and power limit,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path and read just after;
@@ -2608,6 +2621,250 @@ def phase_scatter_times(torch, np, embed):
     return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound, "bytes": nbytes}
 
 
+LM_ARCH = "h2o_danube3_4b"  # serve_lm's default architecture, at its published config
+LM_BATCH, LM_PROMPT, LM_GEN = 16, 16, 128  # 16 sequences, 16-token prompts, 128 new tokens
+LM_SEED = 0
+LM_SEQ = 12  # decode against forward over 12 positions, as the reference's test
+# the decode-against-forward legs, float32 compute at full width; depth cut
+# where the whole model would not fit the card (printed as ``reduced``)
+LM_LEGS = (
+    ("h2o_danube3_4b", {}),
+    ("mamba2_1_3b", {}),
+    ("deepseek_v3", {"n_layers": 3, "first_dense": 3}),  # MLA, absorbed and naive; no routed experts
+    ("phi3_5_moe", {"n_layers": 2}),  # 16 experts, top-2
+)
+LM_REL = 1e-4  # the card's logits against the CPU port's, reduced archs, float32
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.models.transformer import tree_map
+
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel() * t.element_size()), tree)
+    return sum(sizes)
+
+
+def lm_inputs(torch, cfg, gen, batch, seq, device):
+    """Tokens and (whisper, paligemma) stub frontend embeddings from ``gen``."""
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=gen.device, dtype=torch.int32)
+    fe = None
+    if cfg.frontend == "vision" or cfg.encoder_layers:
+        n = cfg.frontend_tokens if cfg.frontend == "vision" else cfg.encoder_tokens
+        fe = torch.randn((batch, n, cfg.d_model), generator=gen, device=gen.device) * 0.02
+    return tokens.to(device), None if fe is None else fe.to(device)
+
+
+def decode_logits(torch, SV, params, cfg, tokens, fe):
+    """Teacher-forced decode logits [B, S, V] through the static cache."""
+    B, S = tokens.shape
+    cache = SV.init_cache(cfg, B, S, torch.float32, tokens.device)
+    if cfg.encoder_layers:
+        cache = SV.prefill_encoder(params, cfg, fe, cache)
+    outs = []
+    for t in range(S):
+        lg, cache = SV.decode_step(params, cfg, cache, tokens[:, t : t + 1], ep_axis=None)
+        outs.append(lg)
+    return torch.cat(outs, dim=1)
+
+
+def decode_vs_forward(torch, np, cfg, full, dec, what) -> dict:
+    """The reference's criterion (``tests/models/test_models.py``): per
+    position, max |decode - forward| over max|forward| <= 5e-3 everywhere
+    (at all but 2 positions for MoE), median < 5e-4."""
+    scale = float(full.abs().max()) + 1e-9
+    per_pos = ((full - dec).abs().amax(dim=(0, 2)) / scale).cpu().numpy()
+    n_bad = int((per_pos > 5e-3).sum())
+    allowed = 2 if cfg.moe is not None else 0
+    check(n_bad <= allowed and float(np.median(per_pos)) < 5e-4, (what, per_pos.tolist()))
+    return {"max": float(per_pos.max()), "median": float(np.median(per_pos)), "n_over_5e-3": n_bad}
+
+
+LM_PROFILE_STEPS = 8
+
+
+def profile_decode(torch, SV, params, cfg, prompts, s_cap) -> dict:
+    """``torch.profiler`` over ``LM_PROFILE_STEPS`` decode steps: the
+    device's busy time (its kernels' time summed) against the wall time
+    under the profiler, the host's time to queue a step, and the five
+    costliest kernels.  Device times read "not measured" where the trace
+    holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import compute_dtype
+
+    cache = SV.init_cache(cfg, prompts.shape[0], s_cap, compute_dtype(cfg), prompts.device)
+    tok = prompts[:, :1]
+    SV.decode_step(params, cfg, cache, tok, ep_axis=None)  # outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILE_STEPS):
+            SV.decode_step(params, cfg, cache, tok, ep_axis=None)
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the kernels' own rows (an operator's row repeats its kernels' time)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    return {
+        "steps": LM_PROFILE_STEPS,
+        "wall_ms_per_step": wall / LM_PROFILE_STEPS * 1e3,
+        "host_queue_ms_per_step": queued / LM_PROFILE_STEPS * 1e3,
+        "device_busy_ms_per_step": busy_ms / LM_PROFILE_STEPS if events else "not measured",
+        "device_idle_share": 1 - busy_ms / (wall * 1e3) if events else "not measured",
+        "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / LM_PROFILE_STEPS for e in top},
+    }
+
+
+def phase_lm(torch, np):
+    """LM serving on the card (``repro_torch.models`` and the serve_lm
+    example's path).
+
+    1. h2o-danube3-4b at its published width and depth (24 layers, d_model
+       3840, SWA 4096, bfloat16 compute over float32 master weights made on
+       the card from a seed): ``greedy_generate`` for 16 prompts of 16
+       tokens and 128 new tokens each, timed; then the example's telemetry
+       leg: the generated bigram graph over a loopback socket into a K=4
+       ``D4MStream.serve`` on the ``cuda`` engine, drained, checkpointed and
+       restored bit-identically, its snapshot numpy's counts of the pairs;
+       ``sort_dedup``, ``hier_cascade`` and ``merge_add`` counted on it;
+    2. decode against forward at full width in float32 (h2o-danube3-4b,
+       mamba2-1.3b, deepseek-v3 and phi3.5-moe, depth cut where printed),
+       the reference's criterion; deepseek's MLA both ways;
+    3. the ten architectures at ``reduced()`` size: the card's logits
+       against the CPU port's on the same weights, and decode against
+       forward on the card."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.analysis import flops
+    from repro_torch.configs import ARCH_IDS, get_config, reduced
+    from repro_torch.examples import serve_lm
+    from repro_torch.models import serving as SV
+    from repro_torch.models import transformer as TF
+
+    t_phase = time.perf_counter()
+    out = {}
+    # ---- 1. the main path: generate at full width, serve the telemetry
+    cfg = get_config(LM_ARCH)
+    nbytes = tree_bytes(TF.init_params(None, cfg, device="meta"))
+    s_cap = LM_PROMPT + LM_GEN
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, SWA {cfg.sliding_window}, "
+        f"{cfg.dtype} compute; float32 master weights {nbytes / 1e9:.2f} GB ({nbytes // 4:,} params); "
+        f"batch {LM_BATCH}, prompt {LM_PROMPT}, {LM_GEN} new tokens; no reductions")
+    params, prompts, _ = serve_lm.make_model(cfg, LM_BATCH, LM_PROMPT, DEVICE, seed=LM_SEED)
+    check(tree_bytes(params) == nbytes, "the tree on the card holds the meta tree's bytes")
+    with torch.no_grad():
+        SV.greedy_generate(params, cfg, prompts, steps=2, s_cap=s_cap)  # warm-up: cuBLAS, allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen_out = SV.greedy_generate(params, cfg, prompts, steps=LM_GEN, s_cap=s_cap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = profile_decode(torch, SV, params, cfg, prompts, s_cap)
+    tokens = gen_out.cpu().numpy()
+    check(tokens.shape == (LM_BATCH, LM_GEN) and tokens.dtype == np.int32, ("tokens", tokens.shape))
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab, "tokens in the vocabulary")
+    n_steps = LM_PROMPT + LM_GEN - 1  # prefill by repeated decode, as the reference
+    step_ms = wall / n_steps * 1e3
+    step_bytes = flops.decode_bytes(cfg, LM_BATCH, s_cap)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, prompts, gen_out
+    free(torch)
+    out["generate"] = {"wall_s": wall, "decode_steps": n_steps, "ms_per_step": step_ms,
+                       "tokens_per_s": LM_BATCH * LM_GEN / wall,
+                       "decode_tokens_per_s": LM_BATCH * n_steps / wall,
+                       "decode_bytes": step_bytes, "bound_ms_per_step": bound_ms, "peak_gb": peak,
+                       "profile": prof}
+    log(f"[lm] greedy_generate: {n_steps} decode steps in {wall:.3f} s: {step_ms:.3f} ms a step "
+        f"(bound {bound_ms:.3f} ms: decode_bytes {step_bytes / 1e9:.3f} GB at 3.35 TB/s), "
+        f"{LM_BATCH * LM_GEN / wall:,.0f} generated tokens/s ({LM_BATCH * n_steps / wall:,.0f} "
+        f"decoded tokens/s incl. the prompt); peak device memory {peak:.2f} GB")
+    log(f"[lm] decode step under torch.profiler: {prof}")
+
+    zero_counts()
+    with tempfile.TemporaryDirectory(prefix="serve_lm_ckpt_") as ckpt_dir:
+        served = serve_lm.serve_bigrams(tokens, DEVICE, ckpt_dir)
+    launches = read_counts()
+    cuda_launches = {k: mod.cuda_launch_count for k, mod in counters().items() if hasattr(mod, "cuda_launch_count")}
+    check(served["kind"] == "cuda", ("engine", served["kind"]))
+    for name in ("sort_dedup", "hier_cascade", "merge_add"):
+        check(launches[name] > 0, f"the LM telemetry path launched no {name}")
+    prev, nxt = serve_lm.bigrams_of(tokens)
+    keys, counts = np.unique(prev.astype(np.int64) * 2**32 + nxt, return_counts=True)
+    rows, cols, vals = served["snapshot"]
+    check(np.array_equal(rows.astype(np.int64) * 2**32 + cols, keys), "served keys are the bigrams")
+    check(np.array_equal(vals, counts.astype(np.float32)), "each bigram's value is its count")
+    rep = served["report"]
+    out["serve"] = {"records": rep.records_fed, "distinct": int(keys.size), "rate": rep.ingest_rate,
+                    "wall_s": rep.wall_s, "batches": rep.batches_fed,
+                    "checkpoints": [c["step"] for c in rep.checkpoints]}
+    out["launches"] = launches
+    out["cuda_launches"] = cuda_launches
+    log(f"[lm] telemetry: {rep.records_fed:,} bigrams ({keys.size:,} distinct) served in {rep.batches_fed} "
+        f"microbatches at {rep.ingest_rate:,.0f} records/s on the K=4 cuda engine, restored bit-identically, "
+        f"snapshot == numpy's counts; wrapper launches {launches}, CUDA launches {cuda_launches}")
+
+    # ---- 2. decode against forward at full width, float32
+    out["legs"] = {}
+    for arch, cut in LM_LEGS:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+        nbytes = tree_bytes(TF.init_params(None, cfg, device="meta"))
+        log(f"[lm] leg {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers, float32, "
+            f"{nbytes / 1e9:.2f} GB of weights; " + (f"reduced: {cut}" if cut else "no reductions"))
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED + 1)
+        params = TF.init_params(gen, cfg, DEVICE)
+        tokens_t, fe = lm_inputs(torch, cfg, gen, 2, LM_SEQ, DEVICE)
+        with torch.no_grad():
+            full, _, _ = TF.forward(params, cfg, tokens_t, fe, ep_axis=None)
+            modes = (True, False) if cfg.mla is not None else (SV.MLA_ABSORBED["enabled"],)
+            res = {}
+            for absorbed in modes:
+                SV.MLA_ABSORBED["enabled"] = absorbed
+                try:
+                    dec = decode_logits(torch, SV, params, cfg, tokens_t, fe)
+                finally:
+                    SV.MLA_ABSORBED["enabled"] = True
+                key = ("absorbed" if absorbed else "naive") if cfg.mla is not None else "decode"
+                res[key] = decode_vs_forward(torch, np, cfg, full, dec, f"{cfg.name} {key}")
+        torch.cuda.synchronize()
+        res.update(gb=nbytes / 1e9, reduced=cut, s=time.perf_counter() - t0)
+        out["legs"][cfg.name] = res
+        log(f"[lm] leg {cfg.name}: decode vs forward {res} ")
+        del params, full, dec
+        free(torch)
+
+    # ---- 3. the ten archs at reduced size: the card against the CPU port
+    out["reduced"] = {}
+    for arch in ARCH_IDS:
+        cfg = reduced(get_config(arch))  # float32
+        gen = torch.Generator().manual_seed(LM_SEED + 2)
+        params = TF.init_params(gen, cfg, "cpu")
+        tokens_t, fe = lm_inputs(torch, cfg, gen, 2, 16, "cpu")
+        with torch.no_grad():
+            want, _, _ = TF.forward(params, cfg, tokens_t, fe, ep_axis=None)
+            dparams = TF.tree_map(lambda t: t.to(DEVICE), params)
+            dtok, dfe = tokens_t.to(DEVICE), None if fe is None else fe.to(DEVICE)
+            got, _, _ = TF.forward(dparams, cfg, dtok, dfe, ep_axis=None)
+            rel = float((got.cpu() - want).abs().max() / want.abs().max())
+            check(rel <= LM_REL, (cfg.name, "card against CPU", rel))
+            row = {"card_vs_cpu": rel}
+            if cfg.frontend != "vision":  # as the reference's test: the VLM's decode has no prefix path
+                dec = decode_logits(torch, SV, dparams, cfg, dtok[:, :LM_SEQ], dfe)
+                full, _, _ = TF.forward(dparams, cfg, dtok[:, :LM_SEQ], dfe, ep_axis=None)
+                row["decode_vs_forward"] = decode_vs_forward(torch, np, cfg, full, dec, f"{cfg.name} reduced")
+        out["reduced"][cfg.name] = row
+    log(f"[lm] reduced archs on the card: {out['reduced']}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[lm] phase_lm {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2637,6 +2894,9 @@ def main() -> int:
     parity_err = phase_parity(torch, np)
     ops_err = phase_parity_ops(torch, np)
     scatter_err = phase_parity_scatter(torch, np)
+    torch.cuda.reset_peak_memory_stats()
+    lm = phase_lm(torch, np)
+    free(torch)
     data = phase_data(torch, np)
     sess8, main_run = phase_main(torch, np, data)
     mesh = phase_mesh(torch, np, data, sess8)
@@ -2677,7 +2937,7 @@ def main() -> int:
              "serve_single": served["single"]["launches"],
              "serve_loopback": served["loopback"]["launches"], "value_types": types_launches,
              "algebra": algebra["launches"], "embed_grad": embed["launches"],
-             "fleet": fleet["launches"], **mesh["launches"],
+             "fleet": fleet["launches"], **mesh["launches"], "lm_serve": lm["launches"],
              **{f"bench_{sec}": c for sec, c in bench["launches"].items()}}
     err = max(ops_err, main_run["err"], read["err"], single["err"], algebra["err"], served["err"],
               types_err, mesh["err"])
@@ -2817,6 +3077,7 @@ def main() -> int:
         "sections": bench["sections"],
         "launches": bench["launches"],
     }))
+    log("[lm-metrics] " + json.dumps({"card": card, **{k: v for k, v in lm.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -1,0 +1,352 @@
+"""Unified model assembly for all 10 assigned architectures (port of the
+forward half of ``repro.models.transformer``).
+
+A config is compiled into a *stage plan*: the decoder's per-layer kind
+signature ``(mixer, global/local, moe?)`` is factored into
+``prefix + period^reps + suffix``.  The reference runs each repeated period
+under one ``lax.scan`` over ``[reps, ...]``-stacked parameters; the port
+keeps those stacked leaves (the same tree) and runs the period as a Python
+loop over ``reps``.
+
+Families handled:
+* dense / GQA / SWA / local:global  (danube, gemma3, qwen2, granite)
+* MoE (phi3.5-moe), MLA+MoE (deepseek-v3; its MTP module's weights are
+  built, its loss belongs to the training slice)
+* hybrid mamba+attn+MoE (jamba), pure SSM (mamba2, FFN-free blocks)
+* prefix-LM VLM with stub vision embeddings (paligemma)
+* encoder-decoder with stub audio frontend (whisper)
+
+``remat=`` is accepted for the reference's signature and has no effect:
+without autograd there is no backward pass to rematerialise for.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+
+from . import layers as L
+from . import mamba as M
+from . import mla as MLA
+from . import moe as MOE
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def tree_map(fn: Callable, *trees):
+    """``fn`` over the leaves of trees of one structure: nested dicts,
+    lists and tuples (the param and cache trees) with tensors at the
+    leaves."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# stage plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    kind: str  # 'attn' | 'ssm'
+    is_global: bool  # full-context attention (vs sliding window)
+    has_moe: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    specs: Tuple[GroupSpec, ...]  # layer kinds within one repetition
+    reps: int  # repetitions (1 = apply once, unstacked params)
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.specs) * self.reps
+
+
+def _sig(cfg: ModelConfig, i: int) -> GroupSpec:
+    kind = cfg.layer_kind(i)
+    return GroupSpec(
+        kind,
+        cfg.layer_is_global_attn(i) if kind == "attn" else False,
+        cfg.layer_has_moe(i),
+    )
+
+
+def _consecutive_stages(sigs: List[GroupSpec]) -> List[Stage]:
+    out: List[Stage] = []
+    i = 0
+    while i < len(sigs):
+        j = i
+        while j + 1 < len(sigs) and sigs[j + 1] == sigs[i]:
+            j += 1
+        out.append(Stage((sigs[i],), j - i + 1))
+        i = j + 1
+    return out
+
+
+def build_plan(cfg: ModelConfig) -> Tuple[Stage, ...]:
+    sigs = [_sig(cfg, i) for i in range(cfg.n_layers)]
+    prefix = sigs[: cfg.first_dense]
+    region = sigs[cfg.first_dense :]
+    stages: List[Stage] = _consecutive_stages(prefix)
+    if region:
+        n = len(region)
+        best_p = n
+        for p in range(1, n + 1):
+            if n // p >= 1 and all(region[k] == region[k % p] for k in range(n)):
+                best_p = p
+                break
+        reps = n // best_p
+        if reps > 1:
+            stages.append(Stage(tuple(region[:best_p]), reps))
+            stages.extend(_consecutive_stages(region[reps * best_p :]))
+        else:
+            stages.extend(_consecutive_stages(region))
+    assert sum(s.n_layers for s in stages) == cfg.n_layers
+    return tuple(stages)
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+
+def _init_layer(gen, cfg: ModelConfig, g: GroupSpec, device) -> Params:
+    p: Params = {
+        "norm_mix": L.init_norm(cfg, cfg.d_model, device),
+        "norm_ffn": L.init_norm(cfg, cfg.d_model, device),
+    }
+    if g.kind == "ssm":
+        p["ssm"] = M.init_mamba(gen, cfg, device)
+    elif cfg.mla is not None:
+        p["mla"] = MLA.init_mla(gen, cfg, device)
+    else:
+        p["attn"] = L.init_attention(gen, cfg, device)
+    if g.has_moe:
+        p["moe"] = MOE.init_moe(gen, cfg, device)
+    elif cfg.d_ff > 0:
+        p["ffn"] = L.init_ffn(gen, cfg, device)
+    else:
+        del p["norm_ffn"]  # pure-mamba blocks (mamba2) have no FFN sublayer
+    return p
+
+
+def _stack(trees: List[Params]) -> Params:
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def init_stage(gen, cfg: ModelConfig, st: Stage, device):
+    """Per-stage params: a tuple over specs; leaves stacked [reps, ...] if
+    reps > 1."""
+    if st.reps == 1:
+        return tuple(_init_layer(gen, cfg, g, device) for g in st.specs)
+    return tuple(_stack([_init_layer(gen, cfg, g, device) for _ in range(st.reps)]) for g in st.specs)
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+    """Float32 master weights in the reference's tree shape and leaf names,
+    drawn from ``gen`` (on its own device) and placed on ``device``
+    (``cuda`` unless given; ``"meta"`` gives the shapes alone).  The
+    values are not JAX's: carry those across with
+    :func:`repro_torch.models.convert.params_from_numpy`."""
+    dev = torch.device("meta") if device == "meta" else resolve_device(device)
+    plan = build_plan(cfg)
+    stages = [init_stage(gen, cfg, st, dev) for st in plan]
+    params: Params = {
+        "embed": L.init_embed(gen, cfg, dev),
+        "stages": stages,
+        "final_norm": L.init_norm(cfg, cfg.d_model, dev),
+    }
+    if cfg.encoder_layers:
+        enc_layers = [
+            {
+                "norm1": L.init_norm(cfg, cfg.d_model, dev),
+                "attn": L.init_attention(gen, cfg, dev),
+                "norm2": L.init_norm(cfg, cfg.d_model, dev),
+                "ffn": L.init_ffn(gen, cfg, dev),
+            }
+            for _ in range(cfg.encoder_layers)
+        ]
+        params["encoder"] = {"layers": _stack(enc_layers), "final_norm": L.init_norm(cfg, cfg.d_model, dev)}
+        params["cross"] = _stack([
+            {"norm": L.init_norm(cfg, cfg.d_model, dev), "attn": L.init_attention(gen, cfg, dev)}
+            for _ in range(cfg.n_layers)
+        ])
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "proj": L._dense_init(gen, (2 * cfg.d_model, cfg.d_model), dev),
+            "norm_h": L.init_norm(cfg, cfg.d_model, dev),
+            "norm_e": L.init_norm(cfg, cfg.d_model, dev),
+            "block": _init_layer(gen, cfg, GroupSpec("attn", True, False), dev),
+            "final_norm": L.init_norm(cfg, cfg.d_model, dev),
+        }
+    return params
+
+
+def layer_of(stacked: Params, r: int) -> Params:
+    """Repetition ``r`` of a ``[reps, ...]``-stacked layer tree."""
+    return tree_map(lambda w: w[r], stacked)
+
+
+# ---------------------------------------------------------------------------
+# one decoder layer (full-sequence path)
+# ---------------------------------------------------------------------------
+
+def _apply_layer_train(p, cfg: ModelConfig, g: GroupSpec, x, positions, ep_axis, prefix_len: int = 0):
+    """Masks are structural (causal/window/prefix) and built inside the
+    layer; at Sq >= FLASH_MIN_SEQ the blockwise online-softmax path runs."""
+    aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.apply_norm(p["norm_mix"], x)
+    if g.kind == "ssm":
+        mix, _ = M.apply_mamba(p["ssm"], cfg, h)
+    else:
+        window = None if g.is_global or cfg.sliding_window is None else cfg.sliding_window
+        if x.shape[1] >= L.FLASH_MIN_SEQ:
+            flash = dict(causal=True, window=window, prefix_len=prefix_len)
+            if cfg.mla is not None:
+                mix, _ = MLA.apply_mla(p["mla"], cfg, h, positions, None, flash=flash)
+            else:
+                mix, _ = L.apply_attention(
+                    p["attn"], cfg, h, positions, None, use_rope=cfg.rope_theta > 0, flash=flash
+                )
+        else:
+            mask = L.attention_mask(positions, positions, causal=True, window=window, prefix_len=prefix_len)
+            if cfg.mla is not None:
+                mix, _ = MLA.apply_mla(p["mla"], cfg, h, positions, mask)
+            else:
+                mix, _ = L.apply_attention(p["attn"], cfg, h, positions, mask, use_rope=cfg.rope_theta > 0)
+    x = x + mix
+    if "norm_ffn" not in p:  # FFN-free block (pure mamba2)
+        return x, aux_loss
+    h = L.apply_norm(p["norm_ffn"], x)
+    if g.has_moe:
+        f, aux = MOE.apply_moe(p["moe"], cfg, h, ep_axis)
+        aux_loss = aux_loss + aux["moe_aux_loss"]
+    else:
+        f = L.apply_ffn(p["ffn"], cfg, h)
+    return x + f, aux_loss
+
+
+def _run_stages_train(params, cfg, x, positions, ep_axis):
+    plan = build_plan(cfg)
+    prefix = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for st, sp in zip(plan, params["stages"]):
+        for r in range(st.reps):
+            for g, p_layer in zip(st.specs, sp):
+                if st.reps > 1:
+                    p_layer = layer_of(p_layer, r)
+                x, a = _apply_layer_train(p_layer, cfg, g, x, positions, ep_axis, prefix)
+                aux_total = aux_total + a
+    return x, aux_total
+
+
+# ---------------------------------------------------------------------------
+# encoder (whisper): bidirectional, sinusoidal positions, stub frames
+# ---------------------------------------------------------------------------
+
+def _sinusoid(seq: int, d: int, dtype, device=None) -> torch.Tensor:
+    return _sinusoid_of(torch.arange(seq, dtype=torch.float32, device=device), d, dtype)
+
+
+def _sinusoid_of(pos: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """The rows of the sinusoid table at float32 positions ``pos`` [S]."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=pos.device)[None, :]
+    ang = pos[:, None] / torch.pow(10000.0, 2 * i / (d // 2))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def _run_encoder(params, cfg: ModelConfig, frames: torch.Tensor):
+    """frames: [B, T_enc, d] stub embeddings (the conv frontend is a stub)."""
+    B, T, d = frames.shape
+    x = frames + _sinusoid(T, d, frames.dtype, frames.device)[None]
+    positions = torch.arange(T, dtype=torch.int32, device=frames.device)[None].expand(B, T)
+    # The reference passes jnp.zeros((B, T, T), float32) as the mask, which
+    # jnp.where reads as all-False: every score becomes BIG_NEG and the
+    # encoder's attention is the plain mean of v over all T frames.
+    mask_b = torch.zeros((B, T, T), dtype=torch.bool, device=frames.device)
+    enc = params["encoder"]["layers"]
+    for li in range(cfg.encoder_layers):
+        pp = layer_of(enc, li)
+        h = L.apply_norm(pp["norm1"], x)
+        mix, _ = L.apply_attention(pp["attn"], cfg, h, positions, mask_b, use_rope=False)
+        y = x + mix
+        h = L.apply_norm(pp["norm2"], y)
+        x = y + L.apply_ffn(pp["ffn"], cfg, h)
+    return L.apply_norm(params["encoder"]["final_norm"], x)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, S_text]
+    frontend_embeds: Optional[torch.Tensor] = None,  # [B, P, d] stub (vlm/audio enc)
+    ep_axis: Optional[str] = "model",
+    remat: bool = True,
+    last_only: bool = False,  # prefill: logits for the final position only
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (logits [B, S_total, V], hidden [B, S_total, d], moe_aux)."""
+    dtype = compute_dtype(cfg)
+    B, S_text = tokens.shape
+    x = L.embed_tokens(params["embed"], cfg, tokens, dtype)
+    enc_out = None
+    if cfg.frontend == "vision":
+        assert frontend_embeds is not None
+        x = torch.cat([frontend_embeds.to(dtype), x], dim=1)
+    elif cfg.encoder_layers:
+        assert frontend_embeds is not None
+        enc_out = _run_encoder(params, cfg, frontend_embeds.to(dtype))
+        x = x + _sinusoid(S_text, cfg.d_model, dtype, x.device)[None]
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+
+    if cfg.encoder_layers:
+        x, aux = _run_cross_train(params, cfg, x, positions, enc_out)
+    else:
+        x, aux = _run_stages_train(params, cfg, x, positions, ep_axis)
+    x = L.apply_norm(params["final_norm"], x)
+    logits = L.lm_logits(params["embed"], cfg, x[:, -1:] if last_only else x)
+    return logits, x, aux
+
+
+def _run_cross_train(params, cfg, x, positions, enc_out):
+    """Decoder with interleaved cross-attention (whisper): one homogeneous
+    stage, layer by layer with its cross block."""
+    B, S, d = x.shape
+    T = enc_out.shape[1]
+    (st,) = build_plan(cfg)
+    assert len(st.specs) == 1, "whisper decoder must be a single homogeneous stage"
+    sp = params["stages"][0][0]
+    kvh, hd = cfg.n_kv_heads, cfg.hd
+    mask = L.attention_mask(positions, positions, causal=True)
+    for li in range(st.reps):
+        pp = layer_of(sp, li) if st.reps > 1 else sp
+        cp = layer_of(params["cross"], li)
+        h = L.apply_norm(pp["norm_mix"], x)
+        mix, _ = L.apply_attention(pp["attn"], cfg, h, positions, mask, use_rope=False)
+        x = x + mix
+        h = L.apply_norm(cp["norm"], x)
+        k = torch.einsum("btd,dh->bth", enc_out, cp["attn"]["wk"].to(x.dtype))
+        v = torch.einsum("btd,dh->bth", enc_out, cp["attn"]["wv"].to(x.dtype))
+        mix, _ = L.apply_attention(
+            cp["attn"], cfg, h, positions, None,  # cross-attention: every encoder token visible
+            kv=(k.reshape(B, T, kvh, hd), v.reshape(B, T, kvh, hd)), use_rope=False,
+        )
+        x = x + mix
+        h = L.apply_norm(pp["norm_ffn"], x)
+        x = x + L.apply_ffn(pp["ffn"], cfg, h)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -44,7 +44,11 @@ for name in ("repro_torch.kernels.merge_add.ops", "repro_torch.kernels.sort_dedu
              "repro_torch.benchmarks.bench_query", "repro_torch.benchmarks.bench_obs",
              "repro_torch.benchmarks.bench_fleet",
              "repro_torch.core.mesh", "repro_torch.core.distributed",
-             "repro_torch.core.streaming"):
+             "repro_torch.core.streaming",
+             "repro_torch.models.layers", "repro_torch.models.mla", "repro_torch.models.mamba",
+             "repro_torch.models.moe", "repro_torch.models.transformer",
+             "repro_torch.models.serving", "repro_torch.models.convert",
+             "repro_torch.analysis.flops", "repro_torch.examples.serve_lm"):
     assert name in names, name
 print(len(names))
 """
