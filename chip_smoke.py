@@ -39,9 +39,25 @@ Phases, each of which asserts (any failure exits non-zero):
    mamba2-1.3b, deepseek-v3 at 3 layers with MLA both ways, phi3.5-moe at
    2 layers) by the reference's criterion; the ten architectures at
    ``reduced()`` size, the card's logits against the CPU port's;
-5. make the R-MAT stream once (200 groups of 100,000 scale-20 edges,
+5. LM training (``phase_train``: ``launch.steps``, the losses, remat and
+   the ``train_lm`` example): qwen2-0.5b at its published width and depth
+   (bfloat16 compute over float32 master weights) through
+   ``make_train_step``, 4 steps of 4 x 2048 ``TokenStream`` tokens
+   (Zipf 1.3, as ``train_lm`` draws them) in two microbatches, timed (ms a step, tokens/s, the model-FLOP share of the 989 TFLOP/s
+   dense bfloat16 peak), the loss falling and every gradient finite; top-k
+   compression's bookkeeping exact; a checkpoint after step 2 restored and
+   run on, against the uninterrupted run; the embedding gather's backward
+   (``scatter_add``, once a microbatch: the ``lm_train`` path) through the
+   kernel and inside ``plain_versions()``, the table gradient
+   bit-identical; the ``train_lm`` loop at mamba2-1.3b's published config
+   with the hierarchical sparse embedding gradient (the ``train_lm``
+   path), its flushed rows' dense table bit-identical to the plain
+   version's and equal to count x the dense gradient's rows (ROADMAP C25);
+   the ten architectures at ``reduced()`` size, the card's loss and
+   gradients against the CPU port's;
+6. make the R-MAT stream once (200 groups of 100,000 scale-20 edges,
    ``configs/d4m_stream.CONFIG``) and count it with numpy;
-6. the ``cuda`` engine at full width: K=8 hash-routed instances of the
+7. the ``cuda`` engine at full width: K=8 hash-routed instances of the
    paper's instance shape (cuts 100k/1M/10M, top capacity 16,000,000
    each) through ``D4MStream(cfg).ingest``, 200 ``sort_dedup`` calls and
    200 ``hier_cascade`` launches; replay the same routed batches through
@@ -50,9 +66,9 @@ Phases, each of which asserts (any failure exits non-zero):
    and through the plain versions, and require all three states
    bit-identical; then 120 groups in bfloat16 through the kernels and
    inside ``kernels.plain_versions()``, bit-identical;
-7. the mesh engine (``MultiStreamEngine`` through ``D4MStream(cfg,
+8. the mesh engine (``MultiStreamEngine`` through ``D4MStream(cfg,
    mesh=Mesh(...))``): D=4 shards on ``cuda:0`` (``cuda:0..3`` on a machine
-   with four cards).  D=4 x K=2 over the stream, bit-identical to step 6's
+   with four cards).  D=4 x K=2 over the stream, bit-identical to step 7's
    K=8 state and, inside ``kernels.plain_versions()``, to the plain
    versions (state and global snapshot); D=4 x K=8 (32 instances, 15.3 GB)
    over the stream, its updates/s beside the ``cuda`` engine's at K=32 in
@@ -63,23 +79,23 @@ Phases, each of which asserts (any failure exits non-zero):
    ``all-to-all`` and 1 ``all-reduce`` an update, kernels against plain
    versions bit for bit; no collective on the mesh's update path; a
    ``[mesh-metrics]`` line holds the rates;
-8. the read side: the K=8 snapshot and ``query.degrees`` through the
+9. the read side: the K=8 snapshot and ``query.degrees`` through the
    kernels and inside ``kernels.plain_versions()``, bit-identical, checked
    against numpy's distinct count and ``bincount``;
-9. the ``single`` engine (K=1, ``CONFIG`` unchanged: top capacity 140 M)
+10. the ``single`` engine (K=1, ``CONFIG`` unchanged: top capacity 140 M)
    at full width, through the kernels and inside ``plain_versions()``,
    bit-identical, every cascade level firing;
-10. per-call times of ``sort_dedup`` and ``merge_add`` at the main paths'
+11. per-call times of ``sort_dedup`` and ``merge_add`` at the main paths'
    shapes (``sort_dedup``: both engines' batches, the degrees' fold stage
    and its longest run, with the CUDA launches and the wrapper's host ms a
    call; ``merge_add``: the layer-1 merge, the snapshot merges and the
    ``single`` engine's last 1->2, 2->3 and 3->4 cascade merges), with
    their byte bounds (dead-tail bytes apart), plain versions and
    ``torch.sort`` of the same keys as a reference;
-11. the algebra and graph queries on a uniform random graph (2^16
+12. the algebra and graph queries on a uniform random graph (2^16
    vertices, 500,000 edges, ``max_fanout`` 64), kernels against plain bit
    for bit, triangles against scipy's ``trace(A^3)/6``;
-12. the embedding-gradient path at granite-3-8b's full width (after the
+13. the embedding-gradient path at granite-3-8b's full width (after the
     streaming phases' state is freed): one optimizer window of 256
     microbatches of 4096 tokens (``TokenStream``, Zipf 1.3) into the
     hierarchical row accumulator, ``hier_flush``, ``dense_grad_of``
@@ -90,7 +106,7 @@ Phases, each of which asserts (any failure exits non-zero):
     distinct count;
     then ``scatter_add`` alone at that shape, with its bound, plain version
     and ``index_add_`` of the live prefix as a yardstick;
-13. the fleet (``repro_torch.fleet``, after the serve phases, with this
+14. the fleet (``repro_torch.fleet``, after the serve phases, with this
     process's streaming state freed first): N = 1, 2 and 4 worker
     processes, each a full-width ``cuda`` session (K=8, ``CONFIG``) fed its
     host-tier shard of the 200 groups by ``FleetController.run``; N=4
@@ -101,7 +117,7 @@ Phases, each of which asserts (any failure exits non-zero):
     snapshot, at N=4 also inside ``plain_versions()``; every worker
     reports its own ``hier_cascade``, ``sort_dedup`` and ``merge_add``
     launches; a ``[fleet-metrics]`` line holds the rates;
-14. the port's benchmark suite (after the fleet, this process's streaming
+15. the port's benchmark suite (after the fleet, this process's streaming
     state freed): ``python -m repro_torch.benchmarks.run --experiment
     src/repro_torch/benchmarks/experiments/chip.json`` in a subprocess, all
     nine sections at full width (``hier`` at the paper's 100 M edges; the
@@ -114,7 +130,7 @@ Phases, each of which asserts (any failure exits non-zero):
     launched; a ``[bench-metrics]`` line holds
     its rates and verdicts, and the ``kernels`` line its launches as
     ``bench_<section>`` paths;
-15. print a ``{"kernels": [...]}`` line, the card's name and power limit,
+16. print a ``{"kernels": [...]}`` line, the card's name and power limit,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path and read just after;
@@ -2595,30 +2611,31 @@ def phase_embed_grad(torch, np):
     }
 
 
-def phase_scatter_times(torch, np, embed):
-    """``scatter_add`` alone at the path's shape (the flushed accumulator
-    into a zero float32 [49,664, 4096] table): kernel, bound, plain version
-    and ``index_add_`` of the live prefix, the one PyTorch call that
-    computes the same function (timed as a yardstick only)."""
+def scatter_times(torch, np, ids, rows, nnz, table_rows, tag):
+    """``scatter_add`` alone: sorted-unique ``ids`` (PAD past ``nnz``) and
+    their ``rows`` into a zero ``[table_rows, d]`` table of the rows' dtype:
+    kernel, bound, plain version and ``index_add_`` of the live prefix, the
+    one PyTorch call that computes the same function (timed as a yardstick
+    only)."""
     from repro_torch.kernels.scatter_add import ops as sa
 
-    fl = embed["flushed"]
-    ids, rows = fl.ids, fl.rows
-    n, k, d = int(fl.nnz), ids.shape[0], rows.shape[1]
-    table = torch.zeros((embed["rows_n"], d), device=DEVICE)
+    k, d, el = ids.shape[0], rows.shape[1], rows.element_size()
+    table = torch.zeros((table_rows, d), dtype=rows.dtype, device=DEVICE)
     ms = time_kernel(torch, np, lambda: sa.scatter_add(ids, rows, table))
     plain = time_host(torch, np, lambda: sa.scatter_add_plain(ids, rows, table), reps=3)
-    live_ids, live_rows = ids[:n].contiguous(), rows[:n].contiguous()
+    live_ids, live_rows = ids[:nnz].contiguous(), rows[:nnz].contiguous()
     lib = time_kernel(torch, np, lambda: table.index_add_(0, live_ids, live_rows))
     # each live row: table row read and written, gradient row read; the ids
     # read once; row 0 read and written for the PAD slots' "+ 0.0" when no
     # live id owns it
-    nbytes = n * d * 4 * 3 + k * 4 + (0 if int(ids[0]) == 0 else 2 * d * 4)
+    pad_row = 0 if nnz == k or int(ids[0]) == 0 else 2 * d * el
+    nbytes = nnz * d * el * 3 + k * 4 + pad_row
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"[times] scatter_add [{k:,} slots, {n:,} live] x {d} float32 into [{embed['rows_n']:,}, {d}]: "
-        f"{ms:.4f} ms, bound {bound:.5f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s), plain {plain:.3f} ms, "
+    log(f"[{tag}] scatter_add [{k:,} slots, {nnz:,} live] x {d} {str(rows.dtype)[6:]} into [{table_rows:,}, {d}]: "
+        f"{ms:.4f} ms, bound {bound:.5f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s), plain {plain:.3f} ms, "
         f"index_add_ of the live prefix {lib:.4f} ms (yardstick only)")
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound, "bytes": nbytes}
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound, "bytes": nbytes,
+            "slots": k, "live": nnz}
 
 
 LM_ARCH = "h2o_danube3_4b"  # serve_lm's default architecture, at its published config
@@ -2682,13 +2699,30 @@ def decode_vs_forward(torch, np, cfg, full, dec, what) -> dict:
 LM_PROFILE_STEPS = 8
 
 
+def device_kernels(prof) -> list:
+    """The kernels' own rows of a ``torch.profiler`` trace (an operator's
+    row repeats its kernels' time), with their device time."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.self_device_time_total > 0]
+
+
+def top_kernels(events, n, per=1) -> dict:
+    """The ``n`` costliest kernels' device ms (over ``per``), summed by the
+    first 90 characters of their names."""
+    ms = {}
+    for e in events:
+        ms[e.key[:90]] = ms.get(e.key[:90], 0.0) + e.self_device_time_total / 1e3 / per
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:n])
+
+
 def profile_decode(torch, SV, params, cfg, prompts, s_cap) -> dict:
     """``torch.profiler`` over ``LM_PROFILE_STEPS`` decode steps: the
     device's busy time (its kernels' time summed) against the wall time
     under the profiler, the host's time to queue a step, and the five
     costliest kernels.  Device times read "not measured" where the trace
     holds none."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.transformer import compute_dtype
@@ -2704,18 +2738,15 @@ def profile_decode(torch, SV, params, cfg, prompts, s_cap) -> dict:
         queued = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # the kernels' own rows (an operator's row repeats its kernels' time)
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.self_device_time_total > 0]
+    events = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
     return {
         "steps": LM_PROFILE_STEPS,
         "wall_ms_per_step": wall / LM_PROFILE_STEPS * 1e3,
         "host_queue_ms_per_step": queued / LM_PROFILE_STEPS * 1e3,
         "device_busy_ms_per_step": busy_ms / LM_PROFILE_STEPS if events else "not measured",
         "device_idle_share": 1 - busy_ms / (wall * 1e3) if events else "not measured",
-        "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / LM_PROFILE_STEPS for e in top},
+        "top_kernels_ms_per_step": top_kernels(events, 5, LM_PROFILE_STEPS),
     }
 
 
@@ -2865,6 +2896,291 @@ def phase_lm(torch, np):
     return out
 
 
+TRAIN_ARCH = "qwen2_0_5b"  # full width and depth: 24 layers, d_model 896, vocab 151,936, tied table
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2048, 2, 4  # S = FLASH_MIN_SEQ: the blockwise path
+TRAIN_SEED = 0
+TRAIN_LM_ARCH = "mamba2_1_3b"  # the train_lm loop on an untied table, at its published config
+TRAIN_LM = dict(steps=4, batch=4, seq=1024)
+# depth cut: at 48 layers the loop's one checkpoint is 17.4 GB (params, m, v), and the loop
+# took 42.7 s of a 104 s phase; the sparse embedding path depends on d_model and the vocab
+TRAIN_LM_CUT = {"n_layers": 8}
+TRAIN_REL = 1e-4  # the card's loss and gradients against the CPU port's, reduced archs, float32
+BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bfloat16, NVIDIA data sheet (no sparsity)
+
+
+def phase_train(torch, np):
+    """LM training on the card (``launch.steps``, the losses, remat, the
+    embedding gather's backward through ``scatter_add``, and the
+    ``train_lm`` example's loop).
+
+    (a) qwen2-0.5b at its published width and depth (float32 master
+        weights, bfloat16 compute): ``make_train_step`` with two
+        microbatches of 2 x 2048 (the blockwise attention path and its
+        backward), remat, AdamW, 4 steps on one batch of ``TokenStream``'s
+        Zipf(1.3) ids (``train_lm``'s traffic), timed; the loss
+        falls and every gradient is finite; one step with top-k
+        compression (``sparse + residual == g + old residual`` exactly);
+        a checkpoint after step 2 restored into fresh state and run to step
+        4 against the uninterrupted run;
+    (b) one microbatch's gradient through the kernel and inside
+        ``plain_versions()``, the table's bit-identical; ``scatter_add``
+        alone at that shape, its live rows the microbatch's distinct ids;
+    (c) the ``train_lm`` loop at mamba2-1.3b's published config (untied
+        table, the hierarchical sparse embedding gradient): 4 steps of 4 x
+        1024; ``dense_grad_of`` the last flushed rows through the kernel and
+        inside ``plain_versions()`` bit-identical and equal to each token's
+        count times its row of the dense gradient (ROADMAP C25); the
+        checkpoint's cursor;
+    (d) the ten architectures at ``reduced()`` size, float32: the card's
+        ``train_loss`` and every gradient leaf against the CPU port's."""
+    import dataclasses
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.analysis import flops
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import ARCH_IDS, get_config, reduced
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adamw, compression
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.sparse import hier_grad as HG
+    from repro_torch.sparse import row_accum
+
+    t_phase = time.perf_counter()
+    out = {"legs_s": {}}
+
+    def leg_done(name, t0=[t_phase]):
+        now = time.perf_counter()
+        out["legs_s"][name] = now - t0[0]
+        t0[0] = now
+
+    # ---- (a) make_train_step at full width
+    cfg = get_config(TRAIN_ARCH)
+    nbytes = tree_bytes(TF.init_params(None, cfg, device="meta"))
+    fwd = flops.fwd_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    step_bytes = flops.train_bytes(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
+    bound_ms = max(3 * fwd / BF16_PEAK_FLOPS, step_bytes / HBM_BYTES_PER_S) * 1e3
+    log(f"[train] (a) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab:,} (tied), "
+        f"{cfg.dtype} compute; float32 weights {nbytes / 1e9:.2f} GB, + gradients, m and v "
+        f"{4 * nbytes / 1e9:.2f} GB; batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches, remat, "
+        f"{TRAIN_STEPS} steps; no reductions")
+    gen = torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED)
+    state = ST.init_train_state(gen, cfg, DEVICE)
+    # train_lm's traffic: TokenStream's Zipf(1.3) ids and next-token labels
+    host = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=TRAIN_SEED).batch_at(0)
+    batch = {k: torch.from_numpy(x).to(DEVICE) for k, x in host.items()}
+    tokens, labels = batch["tokens"], batch["labels"]
+    micro = TRAIN_BATCH // TRAIN_MICRO
+    live = [int(np.unique(host["tokens"][i:i + micro]).size) for i in range(0, TRAIN_BATCH, micro)]
+    log(f"[train] (a) batch: TokenStream (Zipf 1.3, seed {TRAIN_SEED}) step 0; distinct ids "
+        f"{int(np.unique(host['tokens']).size):,} of {host['tokens'].size:,} tokens, a microbatch {live}")
+    opt_cfg = adamw.AdamWConfig(warmup_steps=0)
+    step = ST.make_train_step(cfg, opt_cfg, n_micro=TRAIN_MICRO, ep_axis=None)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, step_ms, gnorms, mid = [], [], [], None
+    s = state
+    for t in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, m = step(s, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if t == 1:
+            mid = s
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["scatter_add"] == TRAIN_STEPS * TRAIN_MICRO,
+          ("the gather's backward launches scatter_add once a microbatch", launches))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], ("loss finite and falling", losses))
+    check(all(np.isfinite(gnorms)), ("every gradient finite (the global norm)", gnorms))
+    steady = float(np.mean(step_ms[1:]))
+    out["train_step"] = {
+        "losses": losses, "grad_norms": gnorms, "step_ms": step_ms, "ms_per_step": steady,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
+        "model_flops": 3 * fwd, "mfu_bf16_dense_989T": 3 * fwd / (steady / 1e3) / BF16_PEAK_FLOPS,
+        "bound_ms": bound_ms, "train_bytes": step_bytes, "peak_gb": peak, "weights_gb": nbytes / 1e9,
+    }
+    log(f"[train] (a) losses {losses}; steps {[round(x, 1) for x in step_ms]} ms (the first builds cuBLAS "
+        f"plans); {steady:.1f} ms a step, {TRAIN_BATCH * TRAIN_SEQ / steady * 1e3:,.0f} tokens/s, "
+        f"model FLOPs (3 x fwd_flops) {3 * fwd / 1e12:.2f} T: {out['train_step']['mfu_bf16_dense_989T']:.3f} of "
+        f"the 989 TFLOP/s dense bfloat16 peak; bound {bound_ms:.2f} ms; peak memory {peak:.2f} GB; "
+        f"launches {launches}")
+
+    leg_done("a_steps")
+    # restart: checkpoint after step 2, restore into fresh state, steps 3-4
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir)
+        t0 = time.perf_counter()
+        mgr.save(2, mid, extra={"cursor": 2})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, extra = mgr.restore(mid)
+        restore_s = time.perf_counter() - t0
+    del mid
+    r = TF.tree_map(lambda a: torch.from_numpy(a).to(DEVICE), restored)
+    del restored
+    check(extra["cursor"] == 2, ("checkpoint cursor", extra))
+    for _ in range(extra["cursor"], TRAIN_STEPS):
+        r, _ = step(r, batch)
+    pairs = list(zip(tree_leaves(r), tree_leaves(s)))
+    restart_bits = all(torch.equal(a, b) for a, b in pairs)
+    check(all(torch.allclose(a, b, rtol=1e-6, atol=0) for a, b in pairs), "restart within rtol 1e-6")
+    del r, pairs
+    out["restart"] = {"bit_identical": restart_bits, "save_s": save_s, "restore_s": restore_s,
+                      "checkpoint_gb": 3 * nbytes / 1e9}
+    log(f"[train] (a) restart after step 2: steps 3-4 from the restored state "
+        f"{'bit-identical to' if restart_bits else 'within rtol 1e-6 of'} the uninterrupted run; "
+        f"save {save_s:.1f} s, restore {restore_s:.1f} s ({3 * nbytes / 1e9:.2f} GB)")
+
+    leg_done("a_restart")
+    # ---- (b) one microbatch's gradient: the kernel against plain_versions()
+    grad_fn = ST.value_and_grad(cfg, ep_axis=None)
+    mb_tok, mb_lab = tokens[: TRAIN_BATCH // TRAIN_MICRO], labels[: TRAIN_BATCH // TRAIN_MICRO]
+    zero_counts()
+    # under torch.profiler (kernels only: a whole step's CPU operator
+    # events took ~40 s to reduce on the host)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, g_k = grad_fn(s["params"], mb_tok, mb_lab, None)
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k_launches = read_counts()["scatter_add"]
+    events = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    out["profile"] = {
+        "what": f"one microbatch's value_and_grad, {mb_tok.shape[0]} x {mb_tok.shape[1]} tokens",
+        "wall_ms": wall * 1e3, "host_queue_ms": queued * 1e3,
+        "device_busy_ms": busy_ms if events else "not measured",
+        "device_idle_share": 1 - busy_ms / (wall * 1e3) if events else "not measured",
+        "top_kernels_ms": top_kernels(events, 8),
+    }
+    del prof, events
+    log(f"[train] (b) one microbatch's value_and_grad under torch.profiler: {out['profile']}")
+    zero_counts()
+    with kernels.plain_versions():
+        _, _, g_p = grad_fn(s["params"], mb_tok, mb_lab, None)
+        torch.cuda.synchronize()
+    p_launches = read_counts()["scatter_add"]
+    check(k_launches == 1 and p_launches == 0, ("scatter_add launches: kernel 1, plain 0", k_launches, p_launches))
+    table_k, table_p = g_k["embed"]["table"], g_p["embed"]["table"]
+    check(torch.equal(table_k, table_p), "table gradient: kernel against plain_versions(), bit-identical")
+    leaves_k = tree_leaves(g_k)
+    check(all(bool(torch.isfinite(x).all()) for x in leaves_k), "every gradient leaf finite")
+    all_bits = all(torch.equal(a, b) for a, b in zip(leaves_k, tree_leaves(g_p)))
+    del g_p, table_p
+    # the microbatch's ids and folded random bfloat16 rows, as the backward folds its cotangent
+    ids = mb_tok.reshape(-1)
+    folded = row_accum.from_pairs(ids, torch.randn((ids.shape[0], cfg.d_model), device=DEVICE).to(torch.bfloat16),
+                                  cap=ids.shape[0])
+    times = scatter_times(torch, np, folded.ids, folded.rows, int(folded.nnz), cfg.vocab_padded, "train")
+    check(times["live"] == live[0], ("live rows equal the microbatch's distinct ids", times["live"], live))
+    del folded
+    out["gather_backward"] = {"table_bit_identical": True, "all_leaves_bit_identical": all_bits,
+                              "rows": int(mb_tok.numel()), "table": [cfg.vocab_padded, cfg.d_model],
+                              "scatter_add": times}
+    log(f"[train] (b) one microbatch's table gradient, kernel against plain_versions(): bit-identical "
+        f"(every leaf: {all_bits}); every leaf finite")
+
+    # compression: sparse + residual == g + old residual, twice; one step
+    comp = compression.CompressionConfig(enabled=True)
+    res = compression.init_error_feedback(s["params"])
+    t0 = time.perf_counter()
+    for _ in range(2):
+        sparse, new_res = compression.compress(g_k, res, comp)
+        for a, b, g, r0 in zip(tree_leaves(sparse), tree_leaves(new_res), leaves_k, tree_leaves(res)):
+            check(torch.equal(a + b, g.float() + r0), "compression: sparse + residual == g + old residual")
+        res = new_res
+    torch.cuda.synchronize()
+    comp_ms = (time.perf_counter() - t0) / 2 * 1e3
+    del sparse, new_res, g_k, leaves_k
+    cstep = ST.make_train_step(cfg, opt_cfg, n_micro=TRAIN_MICRO, ep_axis=None, comp_cfg=comp)
+    cs, cm = cstep({**s, "residual": res}, batch)
+    check(set(cs) == {"params", "opt", "residual"} and np.isfinite(float(cm["loss"])), "a compressed step")
+    out["compression"] = {"ms_per_compress": comp_ms, "loss": float(cm["loss"]),
+                          "bytes_saved": compression.comm_bytes_saved(s["params"], comp)}
+    del cs, cm, res, s, state, step, cstep
+    free(torch)
+    log(f"[train] (a) compression (top 1%): exact bookkeeping twice, {comp_ms:.1f} ms a compress, "
+        f"one compressed step: loss {out['compression']['loss']:.4f}")
+
+    leg_done("b_and_compression")
+    # ---- (c) the train_lm loop at mamba2-1.3b's published config
+    lcfg = dataclasses.replace(get_config(TRAIN_LM_ARCH), **TRAIN_LM_CUT)
+    lbytes = tree_bytes(TF.init_params(None, lcfg, device="meta"))
+    log(f"[train] (c) train_lm {lcfg.name}: {lcfg.n_layers} layers, d_model {lcfg.d_model}, vocab "
+        f"{lcfg.vocab:,} (untied), float32 weights {lbytes / 1e9:.2f} GB, + gradients, m and v "
+        f"{4 * lbytes / 1e9:.2f} GB; {TRAIN_LM}; --hier-embed-grad; reduced: {TRAIN_LM_CUT}")
+    with tempfile.TemporaryDirectory(prefix="train_lm_ckpt_") as ckpt_dir:
+        zero_counts()
+        t0 = time.perf_counter()
+        res = train_lm.train(lcfg, **TRAIN_LM, hier_embed_grad=True, ckpt_every=TRAIN_LM["steps"],
+                             ckpt_dir=ckpt_dir, device=DEVICE)
+        loop_s = time.perf_counter() - t0
+        lm_launches = read_counts()
+        with open(os.path.join(ckpt_dir, f"ckpt-{TRAIN_LM['steps']:09d}", "manifest.json")) as f:
+            manifest = json.load(f)
+    check(lm_launches["scatter_add"] == TRAIN_LM["steps"], ("train_lm: one scatter_add a step", lm_launches))
+    check(all(np.isfinite(res["losses"])), ("train_lm losses", res["losses"]))
+    check(res["cursor"] == manifest["extra"]["cursor"] == TRAIN_LM["steps"], ("cursor", manifest["extra"]))
+    last = res["last"]
+    v = last["emb_g"].shape[0]
+    zero_counts()
+    dense_k = HG.dense_grad_of(last["flushed"], v)
+    n_k = read_counts()["scatter_add"]
+    with kernels.plain_versions():
+        dense_p = HG.dense_grad_of(last["flushed"], v)
+    check(n_k == 1 and read_counts()["scatter_add"] == 1, "dense_grad_of: one launch, none inside plain_versions()")
+    check(torch.equal(dense_k, dense_p), "dense_grad_of: kernel against plain_versions(), bit-identical")
+    counts = torch.bincount(last["tokens"].reshape(-1).long(), minlength=v)[:, None].float()
+    c25 = float((dense_k - counts * last["emb_g"]).abs().max() / last["emb_g"].abs().max())
+    check(c25 <= 1e-5, ("C25: the accumulated rows are count x the dense gradient's", c25))
+    out["train_lm"] = {"losses": res["losses"], "step_ms": res["step_ms"], "loop_s": loop_s,
+                       "weights_gb": lbytes / 1e9, "reduced": TRAIN_LM_CUT, "cursor": res["cursor"], "c25_rel_err": c25,
+                       "flushed_nnz": int(last["flushed"].nnz), "launches": lm_launches}
+    log(f"[train] (c) train_lm: losses {res['losses']}, steps {[round(x, 1) for x in res['step_ms']]} ms, "
+        f"loop {loop_s:.1f} s with its checkpoint; cursor {res['cursor']}; dense_grad_of bit-identical to "
+        f"plain; C25 max error {c25:.2e} of max|row|; launches {lm_launches}")
+    del res, last, dense_k, dense_p, counts
+    free(torch)
+
+    leg_done("c_train_lm")
+    # ---- (d) the ten archs at reduced size: the card against the CPU port
+    out["reduced"] = {}
+    for arch in ARCH_IDS:
+        rcfg = reduced(get_config(arch))  # float32
+        gen = torch.Generator().manual_seed(TRAIN_SEED + 2)
+        params = TF.init_params(gen, rcfg, "cpu")
+        tok, fe = lm_inputs(torch, rcfg, gen, 2, 16, "cpu")
+        lab = torch.cat([tok[:, 1:], torch.full((2, 1), -100, dtype=torch.int32)], 1)
+        rfn = ST.value_and_grad(rcfg, ep_axis=None)
+        want_loss, _, want = rfn(params, tok, lab, fe)
+        dparams = TF.tree_map(lambda x: x.to(DEVICE), params)
+        got_loss, _, got = rfn(dparams, tok.to(DEVICE), lab.to(DEVICE), None if fe is None else fe.to(DEVICE))
+        loss_err = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+        worst = 0.0
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            check(bool(torch.isfinite(a).all()), (rcfg.name, "non-finite gradient on the card"))
+            scale = float(b.abs().max())
+            worst = max(worst, float((a.cpu() - b).abs().max()) / (scale if scale else 1.0))
+        check(loss_err <= TRAIN_REL and worst <= TRAIN_REL, (rcfg.name, "card against CPU", loss_err, worst))
+        out["reduced"][rcfg.name] = {"loss": loss_err, "grads": worst}
+    log(f"[train] (d) reduced archs, card against CPU (loss, worst gradient leaf): {out['reduced']}")
+    leg_done("d_reduced")
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase_train {out['wall_s']:.1f} s: {out['legs_s']}")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2896,6 +3212,8 @@ def main() -> int:
     scatter_err = phase_parity_scatter(torch, np)
     torch.cuda.reset_peak_memory_stats()
     lm = phase_lm(torch, np)
+    free(torch)
+    train = phase_train(torch, np)
     free(torch)
     data = phase_data(torch, np)
     sess8, main_run = phase_main(torch, np, data)
@@ -2929,7 +3247,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     log(f"[embed] device memory held before the phase {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     embed = phase_embed_grad(torch, np)
-    scatter_times = phase_scatter_times(torch, np, embed)
+    fl = embed["flushed"]
+    embed_times = scatter_times(torch, np, fl.ids, fl.rows, int(fl.nnz), embed["rows_n"], "times")
     log(f"[embed] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     paths = {"cuda": main_run["launches"], "single": single["launches"], "read": read["launches"],
@@ -2938,6 +3257,7 @@ def main() -> int:
              "serve_loopback": served["loopback"]["launches"], "value_types": types_launches,
              "algebra": algebra["launches"], "embed_grad": embed["launches"],
              "fleet": fleet["launches"], **mesh["launches"], "lm_serve": lm["launches"],
+             "lm_train": train["launches"], "train_lm": train["train_lm"]["launches"],
              **{f"bench_{sec}": c for sec, c in bench["launches"].items()}}
     err = max(ops_err, main_run["err"], read["err"], single["err"], algebra["err"], served["err"],
               types_err, mesh["err"])
@@ -3020,13 +3340,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/scatter_add/kernel.py:45",
         "launches": launches("scatter_add")[0],
         "launches_by_path": launches("scatter_add")[1],
-        "max_abs_err": max(scatter_err, embed["err"]),
-        "ms": scatter_times["ms"],
-        "plain_ms": scatter_times["plain_ms"],
-        "bound_ms": scatter_times["bound_ms"],
+        "max_abs_err": max(scatter_err, embed["err"]),  # phase_train's are bit-identical (checked)
+        "ms": embed_times["ms"],
+        "plain_ms": embed_times["plain_ms"],
+        "bound_ms": embed_times["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": scatter_times["library_ms"],
-        "bytes": scatter_times["bytes"],
+        "library_ms": embed_times["library_ms"],
+        "bytes": embed_times["bytes"],
+        "lm_train_shape": train["gather_backward"]["scatter_add"],
         "value_types": ["float32", "bfloat16", "float16"],
         "parity": "bit-identical",
     }]
@@ -3078,6 +3399,7 @@ def main() -> int:
         "launches": bench["launches"],
     }))
     log("[lm-metrics] " + json.dumps({"card": card, **{k: v for k, v in lm.items() if k != "launches"}}))
+    log("[train-metrics] " + json.dumps({"card": card, **train}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -11,21 +11,42 @@ masks and the softcap must match the reference's.
 Initialisers draw from an explicit ``torch.Generator`` on the generator's
 own device and move the result to ``device``; ``device="meta"`` gives the
 shapes without drawing or allocating.
+
+Backward passes are autograd's, with two exceptions that keep the
+reference's: :func:`remat_call` is ``jax.checkpoint`` (each flash
+key/value block is recomputed in the backward, as the reference's
+``kv_block``), and :func:`embed_tokens`' gather has the reference's VJP,
+a scatter-add in the compute dtype through the ``scatter_add`` kernel.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from .. import kernels
+from ..sparse import row_accum
 from .config import ModelConfig
 
 Params = Dict[str, Any]
 
 BIG_NEG = -2.0e38  # mask value safe in f32 softmax
 FLASH_MIN_SEQ = 2048  # use blockwise attention at or above this Sq*Sk scale
+
+
+def remat_call(fn: Callable, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept (``jax.checkpoint``; non-reentrant ``torch.utils.checkpoint``)
+    while autograd records; a plain call under ``torch.no_grad()``.  The
+    model draws no random numbers, so no RNG state is kept."""
+    if torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def _normal(gen: torch.Generator, shape, device: torch.device) -> torch.Tensor:
@@ -105,6 +126,9 @@ def flash_attention(
     kc = min(k_chunk, Sk)
     while Sk % kc:
         kc -= 1
+    block = functools.partial(
+        _kv_block, scale=scale, causal=causal, window=window, prefix_len=prefix_len, softcap=softcap
+    )
     outs = []
     for i in range(Sq // qc):
         qb, qp = q[:, i * qc : (i + 1) * qc], q_pos[:, i * qc : (i + 1) * qc]
@@ -114,20 +138,27 @@ def flash_attention(
         for j in range(Sk // kc):
             kb, vb = k[:, j * kc : (j + 1) * kc], v[:, j * kc : (j + 1) * kc]
             kp = k_pos[:, j * kc : (j + 1) * kc]
-            s = torch.einsum("bqkgh,btkh->bkgqt", qb, kb) * scale  # [B,kvh,g,qc,kc]
-            if softcap:
-                s = torch.tanh(s / softcap) * softcap
-            ok = attention_mask(qp, kp, causal=causal, window=window, prefix_len=prefix_len)
-            s = torch.where(ok[:, None, None, :, :], s.float(), BIG_NEG)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            o = o * corr[..., None] + torch.einsum("bkgqt,btkh->bkgqh", p.to(qb.dtype), vb).float()
-            m = m_new
+            # rematerialised, as the reference's kv_block: the backward would
+            # otherwise keep every block's [B, kvh, g, qc, kc] probabilities
+            m, l, o = remat_call(block, qb, kb, vb, qp, kp, m, l, o)
         o = o / torch.clamp(l, min=1e-30)[..., None]
         outs.append(o.movedim(3, 1).to(qb.dtype))  # [B, qc, kvh, g, vd]
     return torch.cat(outs, dim=1)
+
+
+def _kv_block(qb, kb, vb, qp, kp, m, l, o, scale, causal, window, prefix_len, softcap):
+    """One key/value block of the online softmax: ``(m, l, o)`` updated."""
+    s = torch.einsum("bqkgh,btkh->bkgqt", qb, kb) * scale  # [B,kvh,g,qc,kc]
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    ok = attention_mask(qp, kp, causal=causal, window=window, prefix_len=prefix_len)
+    s = torch.where(ok[:, None, None, :, :], s.float(), BIG_NEG)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(-1)
+    o_new = o * corr[..., None] + torch.einsum("bkgqt,btkh->bkgqh", p.to(qb.dtype), vb).float()
+    return m_new, l_new, o_new
 
 
 # ------------------------------------------------------------------ attention
@@ -266,12 +297,40 @@ def mask_pad_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
     return torch.where(ids < cfg.vocab, logits, BIG_NEG)
 
 
+class _EmbedGather(torch.autograd.Function):
+    """``table[tokens].to(dtype)`` with the reference's VJP.
+
+    The reference casts the whole table and then gathers; the cast is
+    elementwise, so gathering first gives the same values without
+    re-reading the table each call (vocab 32,256 x 3,840 float32 is 0.5 GB
+    at full width).  Its VJP is the gather's, then the cast's: the
+    cotangent rows of repeated tokens are summed in the compute dtype into
+    a zero ``[V, d]`` table, and only that table is cast to the table's
+    dtype.  Here the rows are folded by id (``row_accum.from_pairs``:
+    sorted, unique, PAD tail) and written by ``row_accum.to_dense``, which
+    is the ``scatter_add`` kernel on the card.  Autograd may run the
+    backward on another thread, so whether the plain versions were asked
+    for is read in the forward."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, dtype):
+        ctx.save_for_backward(tokens)
+        ctx.rows, ctx.table_dtype = table.shape[0], table.dtype
+        ctx.plain = kernels.plain_active()
+        return table[tokens].to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        ids = tokens.reshape(-1)
+        with kernels.plain_versions() if ctx.plain else contextlib.nullcontext():
+            acc = row_accum.from_pairs(ids, g.reshape(ids.shape[0], -1), cap=ids.shape[0])
+            dense = row_accum.to_dense(acc, ctx.rows)
+        return dense.to(ctx.table_dtype), None, None
+
+
 def embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    # The reference casts the whole table and then gathers.  The cast is
-    # elementwise, so gathering first gives the same values without
-    # re-reading the table each call (vocab 32,256 x 3,840 float32 is
-    # 0.5 GB at full width).
-    return p["table"][tokens].to(dtype) * math.sqrt(cfg.d_model)
+    return _EmbedGather.apply(p["table"], tokens, dtype) * math.sqrt(cfg.d_model)
 
 
 def lm_logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

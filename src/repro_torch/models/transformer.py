@@ -1,5 +1,5 @@
-"""Unified model assembly for all 10 assigned architectures (port of the
-forward half of ``repro.models.transformer``).
+"""Unified model assembly for all 10 assigned architectures (port of
+``repro.models.transformer``).
 
 A config is compiled into a *stage plan*: the decoder's per-layer kind
 signature ``(mixer, global/local, moe?)`` is factored into
@@ -10,14 +10,20 @@ loop over ``reps``.
 
 Families handled:
 * dense / GQA / SWA / local:global  (danube, gemma3, qwen2, granite)
-* MoE (phi3.5-moe), MLA+MoE (deepseek-v3; its MTP module's weights are
-  built, its loss belongs to the training slice)
+* MoE (phi3.5-moe), MLA+MoE+MTP (deepseek-v3)
 * hybrid mamba+attn+MoE (jamba), pure SSM (mamba2, FFN-free blocks)
 * prefix-LM VLM with stub vision embeddings (paligemma)
 * encoder-decoder with stub audio frontend (whisper)
 
-``remat=`` is accepted for the reference's signature and has no effect:
-without autograd there is no backward pass to rematerialise for.
+``remat=True`` (the default) runs each decoder layer, and each of
+whisper's self+cross blocks, under ``layers.remat_call`` (the reference's
+``jax.checkpoint``): while autograd records, a layer keeps only its input
+and recomputes its activations in the backward.  Under ``torch.no_grad()``
+it changes nothing.
+
+Entry points: ``forward`` (training and prefill) and ``train_loss``
+(the chunked cross-entropy, the MoE aux term and DeepSeek-V3's MTP term);
+``serving.decode_step`` for one token against a static cache.
 """
 from __future__ import annotations
 
@@ -237,7 +243,7 @@ def _apply_layer_train(p, cfg: ModelConfig, g: GroupSpec, x, positions, ep_axis,
     return x + f, aux_loss
 
 
-def _run_stages_train(params, cfg, x, positions, ep_axis):
+def _run_stages_train(params, cfg, x, positions, ep_axis, remat: bool = True):
     plan = build_plan(cfg)
     prefix = cfg.frontend_tokens if cfg.frontend == "vision" else 0
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -245,8 +251,12 @@ def _run_stages_train(params, cfg, x, positions, ep_axis):
         for r in range(st.reps):
             for g, p_layer in zip(st.specs, sp):
                 if st.reps > 1:
-                    p_layer = layer_of(p_layer, r)
-                x, a = _apply_layer_train(p_layer, cfg, g, x, positions, ep_axis, prefix)
+                    p_layer = layer_of(p_layer, r)  # views: gradients reach the stacked leaf
+
+                def blk(y, p_layer=p_layer, g=g):
+                    return _apply_layer_train(p_layer, cfg, g, y, positions, ep_axis, prefix)
+
+                x, a = L.remat_call(blk, x) if remat else blk(x)
                 aux_total = aux_total + a
     return x, aux_total
 
@@ -287,7 +297,7 @@ def _run_encoder(params, cfg: ModelConfig, frames: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward (prefill)
+# full-sequence forward (training / prefill)
 # ---------------------------------------------------------------------------
 
 def forward(
@@ -315,15 +325,15 @@ def forward(
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
     if cfg.encoder_layers:
-        x, aux = _run_cross_train(params, cfg, x, positions, enc_out)
+        x, aux = _run_cross_train(params, cfg, x, positions, enc_out, remat)
     else:
-        x, aux = _run_stages_train(params, cfg, x, positions, ep_axis)
+        x, aux = _run_stages_train(params, cfg, x, positions, ep_axis, remat)
     x = L.apply_norm(params["final_norm"], x)
     logits = L.lm_logits(params["embed"], cfg, x[:, -1:] if last_only else x)
     return logits, x, aux
 
 
-def _run_cross_train(params, cfg, x, positions, enc_out):
+def _run_cross_train(params, cfg, x, positions, enc_out, remat: bool = True):
     """Decoder with interleaved cross-attention (whisper): one homogeneous
     stage, layer by layer with its cross block."""
     B, S, d = x.shape
@@ -333,20 +343,132 @@ def _run_cross_train(params, cfg, x, positions, enc_out):
     sp = params["stages"][0][0]
     kvh, hd = cfg.n_kv_heads, cfg.hd
     mask = L.attention_mask(positions, positions, causal=True)
-    for li in range(st.reps):
-        pp = layer_of(sp, li) if st.reps > 1 else sp
-        cp = layer_of(params["cross"], li)
-        h = L.apply_norm(pp["norm_mix"], x)
+
+    def blk(xx, pp, cp):
+        h = L.apply_norm(pp["norm_mix"], xx)
         mix, _ = L.apply_attention(pp["attn"], cfg, h, positions, mask, use_rope=False)
-        x = x + mix
-        h = L.apply_norm(cp["norm"], x)
-        k = torch.einsum("btd,dh->bth", enc_out, cp["attn"]["wk"].to(x.dtype))
-        v = torch.einsum("btd,dh->bth", enc_out, cp["attn"]["wv"].to(x.dtype))
+        xx = xx + mix
+        h = L.apply_norm(cp["norm"], xx)
+        k = torch.einsum("btd,dh->bth", enc_out, cp["attn"]["wk"].to(xx.dtype))
+        v = torch.einsum("btd,dh->bth", enc_out, cp["attn"]["wv"].to(xx.dtype))
         mix, _ = L.apply_attention(
             cp["attn"], cfg, h, positions, None,  # cross-attention: every encoder token visible
             kv=(k.reshape(B, T, kvh, hd), v.reshape(B, T, kvh, hd)), use_rope=False,
         )
-        x = x + mix
-        h = L.apply_norm(pp["norm_ffn"], x)
-        x = x + L.apply_ffn(pp["ffn"], cfg, h)
+        xx = xx + mix
+        h = L.apply_norm(pp["norm_ffn"], xx)
+        return xx + L.apply_ffn(pp["ffn"], cfg, h)
+
+    for li in range(st.reps):
+        pp = layer_of(sp, li) if st.reps > 1 else sp
+        cp = layer_of(params["cross"], li)
+        x = L.remat_call(blk, x, pp, cp) if remat else blk(x, pp, cp)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def lm_loss(
+    logits: torch.Tensor,  # [B, S, V]
+    labels: torch.Tensor,  # [B, S] (-100 = ignore)
+    z_loss: float = 1e-4,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    valid = labels != -100
+    safe = torch.where(valid, labels, 0).long()
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, safe[..., None])[..., 0]
+    nll = lse - gold
+    zl = z_loss * lse**2
+    per_tok = torch.where(valid, nll + zl, 0.0)
+    n = torch.clamp(valid.sum(dtype=torch.int32), min=1)
+    loss = per_tok.sum() / n
+    return loss, {"nll": torch.where(valid, nll, 0.0).sum() / n, "tokens": n}
+
+
+def chunked_lm_loss(
+    params: Params,
+    cfg: ModelConfig,
+    hidden: torch.Tensor,  # [B, S, d] (final-norm'd)
+    labels: torch.Tensor,  # [B, S]
+    chunk: int = 1024,
+    z_loss: float = 1e-4,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross-entropy without materialising [B, S, V] logits.
+
+    The LM head and the softmax run a sequence chunk at a time, each chunk
+    under ``layers.remat_call`` (the reference's checkpointed scan body),
+    so no chunk's [B, chunk, V] logits outlive it in the forward; the
+    backward recomputes them one chunk at a time.  The chunk is the largest
+    divisor of S not above ``chunk``.
+    """
+    B, S, d = hidden.shape
+    c = min(chunk, S)
+    while S % c:
+        c -= 1  # largest divisor <= chunk (shapes here are powers of two)
+
+    def body(h, l):
+        logits = L.mask_pad_logits(cfg, L.lm_logits(params["embed"], cfg, h)).float()
+        valid = l != -100
+        safe = torch.where(valid, l, 0).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        nll = torch.where(valid, lse - gold, 0.0)
+        zl = torch.where(valid, z_loss * lse**2, 0.0)
+        return (nll + zl).sum(), nll.sum(), valid.sum(dtype=torch.int32)
+
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    for i in range(S // c):
+        a, b, k = L.remat_call(body, hidden[:, i * c : (i + 1) * c], labels[:, i * c : (i + 1) * c])
+        loss_sum, nll_sum, cnt = loss_sum + a, nll_sum + b, cnt + k
+    nt = torch.clamp(cnt, min=1)
+    return loss_sum / nt, {"nll": nll_sum / nt, "tokens": nt}
+
+
+def train_loss(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    labels: torch.Tensor,
+    frontend_embeds: Optional[torch.Tensor] = None,
+    ep_axis: Optional[str] = "model",
+    moe_aux_weight: float = 0.01,
+    mtp_weight: float = 0.3,
+    loss_chunk: int = 1024,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    # last_only=True: the [B, S, V] logits are never built; the loss
+    # recomputes chunk logits inside chunked_lm_loss
+    _, hidden, moe_aux = forward(params, cfg, tokens, frontend_embeds, ep_axis, last_only=True)
+    hidden_text = hidden[:, cfg.frontend_tokens :] if cfg.frontend == "vision" else hidden  # text only
+    loss, metrics = chunked_lm_loss(params, cfg, hidden_text, labels, loss_chunk)
+    total = loss + moe_aux_weight * moe_aux
+    if cfg.mtp_depth and "mtp" in params:
+        total = total + mtp_weight * _mtp_loss(params, cfg, hidden, tokens, labels)
+    metrics["moe_aux"] = moe_aux
+    metrics["loss"] = total
+    return total, metrics
+
+
+def _mtp_loss(params, cfg, hidden, tokens, labels):
+    """DeepSeek-V3 multi-token prediction (depth 1): combine h_t with
+    emb(token_{t+1}) through one extra block, predict token_{t+2}."""
+    mp = params["mtp"]
+    dtype = hidden.dtype
+    B, S, d = hidden.shape
+    h = L.apply_norm(mp["norm_h"], hidden[:, :-1])
+    e = L.apply_norm(mp["norm_e"], L.embed_tokens(params["embed"], cfg, tokens[:, 1:], dtype))
+    x = torch.einsum("bsd,dk->bsk", torch.cat([h, e], -1), mp["proj"].to(dtype))
+    positions = torch.arange(S - 1, dtype=torch.int32, device=x.device)[None].expand(B, S - 1)
+    x, _ = _apply_layer_train(mp["block"], cfg, GroupSpec("attn", True, False), x, positions, None)
+    x = L.apply_norm(mp["final_norm"], x)
+    mtp_labels = torch.cat([labels[:, 2:], torch.full((B, 1), -100, dtype=labels.dtype, device=labels.device)], 1)
+    loss, _ = chunked_lm_loss(params, cfg, x, mtp_labels)
+    return loss
+
+
+# the reference's alias for serving
+group_plan = build_plan

@@ -1,2 +1,2 @@
 """Optimizers of the port (port of ``repro.optim``)."""
-from . import adamw  # noqa: F401
+from . import adamw, compression  # noqa: F401

@@ -48,7 +48,9 @@ for name in ("repro_torch.kernels.merge_add.ops", "repro_torch.kernels.sort_dedu
              "repro_torch.models.layers", "repro_torch.models.mla", "repro_torch.models.mamba",
              "repro_torch.models.moe", "repro_torch.models.transformer",
              "repro_torch.models.serving", "repro_torch.models.convert",
-             "repro_torch.analysis.flops", "repro_torch.examples.serve_lm"):
+             "repro_torch.analysis.flops", "repro_torch.examples.serve_lm",
+             "repro_torch.launch", "repro_torch.launch.steps", "repro_torch.optim.compression",
+             "repro_torch.examples.train_lm"):
     assert name in names, name
 print(len(names))
 """
