@@ -55,9 +55,27 @@ Phases, each of which asserts (any failure exits non-zero):
    version's and equal to count x the dense gradient's rows (ROADMAP C25);
    the ten architectures at ``reduced()`` size, the card's loss and
    gradients against the CPU port's;
-6. make the R-MAT stream once (200 groups of 100,000 scale-20 edges,
+6. the sharded LM path (``phase_shard``: ``models/sharding.py``'s plans,
+   ``launch.steps``' sharded step, the expert-parallel MoE, the dry run):
+   qwen2-0.5b at its published width and depth, ``phase_train``'s batch
+   (4 x 2048, two microbatches, remat), on a 2 x 2 ``(data, model)`` mesh
+   of ``cuda:0``: one "fsdp_flat" (ZeRO-3) and one "tp" step (gather at
+   use), each against the unsharded step under the same launch context
+   (loss within 5e-3, each moment leaf within 2^-5 of its max) and timed
+   beside it, their collectives equal to the dry run's formula,
+   ``scatter_add`` once a microbatch on each data shard holding rows, the
+   ZeRO-3 step inside ``plain_versions()`` too; both again in float32 at
+   4 layers within 1e-4; phi3.5-moe at full width (1 layer: 2 do not fit
+   with AdamW state) on ``TokenStream``'s Zipf(1.3) ids: the
+   expert-parallel MoE at 1 x 4 against the local path on the embedding of
+   those tokens (load and drops exact), one "ep" step at 1 x 4 and one
+   "ep_fsdp" step at 2 x 2; the dry run's qwen2-0.5b ``train_4k`` cell at 16 x 16
+   under each strategy, and ``dryrun_assoc`` at 512 shards (group
+   10,000, cut from 100,000); a ``[shard-metrics]`` line holds the
+   numbers, the ``kernels`` line its launches as ``shard_*`` paths;
+7. make the R-MAT stream once (200 groups of 100,000 scale-20 edges,
    ``configs/d4m_stream.CONFIG``) and count it with numpy;
-7. the ``cuda`` engine at full width: K=8 hash-routed instances of the
+8. the ``cuda`` engine at full width: K=8 hash-routed instances of the
    paper's instance shape (cuts 100k/1M/10M, top capacity 16,000,000
    each) through ``D4MStream(cfg).ingest``, 200 ``sort_dedup`` calls and
    200 ``hier_cascade`` launches; replay the same routed batches through
@@ -66,9 +84,9 @@ Phases, each of which asserts (any failure exits non-zero):
    and through the plain versions, and require all three states
    bit-identical; then 120 groups in bfloat16 through the kernels and
    inside ``kernels.plain_versions()``, bit-identical;
-8. the mesh engine (``MultiStreamEngine`` through ``D4MStream(cfg,
+9. the mesh engine (``MultiStreamEngine`` through ``D4MStream(cfg,
    mesh=Mesh(...))``): D=4 shards on ``cuda:0`` (``cuda:0..3`` on a machine
-   with four cards).  D=4 x K=2 over the stream, bit-identical to step 7's
+   with four cards).  D=4 x K=2 over the stream, bit-identical to step 8's
    K=8 state and, inside ``kernels.plain_versions()``, to the plain
    versions (state and global snapshot); D=4 x K=8 (32 instances, 15.3 GB)
    over the stream, its updates/s beside the ``cuda`` engine's at K=32 in
@@ -79,23 +97,23 @@ Phases, each of which asserts (any failure exits non-zero):
    ``all-to-all`` and 1 ``all-reduce`` an update, kernels against plain
    versions bit for bit; no collective on the mesh's update path; a
    ``[mesh-metrics]`` line holds the rates;
-9. the read side: the K=8 snapshot and ``query.degrees`` through the
+10. the read side: the K=8 snapshot and ``query.degrees`` through the
    kernels and inside ``kernels.plain_versions()``, bit-identical, checked
    against numpy's distinct count and ``bincount``;
-10. the ``single`` engine (K=1, ``CONFIG`` unchanged: top capacity 140 M)
+11. the ``single`` engine (K=1, ``CONFIG`` unchanged: top capacity 140 M)
    at full width, through the kernels and inside ``plain_versions()``,
    bit-identical, every cascade level firing;
-11. per-call times of ``sort_dedup`` and ``merge_add`` at the main paths'
+12. per-call times of ``sort_dedup`` and ``merge_add`` at the main paths'
    shapes (``sort_dedup``: both engines' batches, the degrees' fold stage
    and its longest run, with the CUDA launches and the wrapper's host ms a
    call; ``merge_add``: the layer-1 merge, the snapshot merges and the
    ``single`` engine's last 1->2, 2->3 and 3->4 cascade merges), with
    their byte bounds (dead-tail bytes apart), plain versions and
    ``torch.sort`` of the same keys as a reference;
-12. the algebra and graph queries on a uniform random graph (2^16
+13. the algebra and graph queries on a uniform random graph (2^16
    vertices, 500,000 edges, ``max_fanout`` 64), kernels against plain bit
    for bit, triangles against scipy's ``trace(A^3)/6``;
-13. the embedding-gradient path at granite-3-8b's full width (after the
+14. the embedding-gradient path at granite-3-8b's full width (after the
     streaming phases' state is freed): one optimizer window of 256
     microbatches of 4096 tokens (``TokenStream``, Zipf 1.3) into the
     hierarchical row accumulator, ``hier_flush``, ``dense_grad_of``
@@ -106,7 +124,7 @@ Phases, each of which asserts (any failure exits non-zero):
     distinct count;
     then ``scatter_add`` alone at that shape, with its bound, plain version
     and ``index_add_`` of the live prefix as a yardstick;
-14. the fleet (``repro_torch.fleet``, after the serve phases, with this
+15. the fleet (``repro_torch.fleet``, after the serve phases, with this
     process's streaming state freed first): N = 1, 2 and 4 worker
     processes, each a full-width ``cuda`` session (K=8, ``CONFIG``) fed its
     host-tier shard of the 200 groups by ``FleetController.run``; N=4
@@ -117,7 +135,7 @@ Phases, each of which asserts (any failure exits non-zero):
     snapshot, at N=4 also inside ``plain_versions()``; every worker
     reports its own ``hier_cascade``, ``sort_dedup`` and ``merge_add``
     launches; a ``[fleet-metrics]`` line holds the rates;
-15. the port's benchmark suite (after the fleet, this process's streaming
+16. the port's benchmark suite (after the fleet, this process's streaming
     state freed): ``python -m repro_torch.benchmarks.run --experiment
     src/repro_torch/benchmarks/experiments/chip.json`` in a subprocess, all
     nine sections at full width (``hier`` at the paper's 100 M edges; the
@@ -130,7 +148,7 @@ Phases, each of which asserts (any failure exits non-zero):
     launched; a ``[bench-metrics]`` line holds
     its rates and verdicts, and the ``kernels`` line its launches as
     ``bench_<section>`` paths;
-16. print a ``{"kernels": [...]}`` line, the card's name and power limit,
+17. print a ``{"kernels": [...]}`` line, the card's name and power limit,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path and read just after;
@@ -3181,6 +3199,293 @@ def phase_train(torch, np):
     return out
 
 
+SHARD_MESH = (2, 2)  # (data, model): cuda:0 repeated (cuda:0..3 where there are four cards)
+SHARD_LOSS_REL = 5e-3  # bfloat16 compute: the sharded step's loss against the unsharded step's
+SHARD_LEAF_REL = 2.0 ** -5  # bfloat16: each first-moment leaf, of its max |value| (two correct orders differ by a few epsilons)
+SHARD_FP32_REL = 1e-4  # the float32 legs: loss and each moment leaf
+SHARD_FP32_CUT = {"n_layers": 4, "dtype": "float32"}  # qwen2-0.5b at full width, 4 of its 24 layers
+SHARD_EP_ARCH = "phi3_5_moe"  # d_model 4096, 16 experts, top-2, d_expert 6400, vocab 32,064
+SHARD_EP_BATCH, SHARD_EP_SEQ = 2, 2048  # one sequence a data shard at 2 x 2, two microbatches
+SHARD_ASSOC = (512, 10_000)  # dryrun_assoc: the reference's 512 shards; group cut from 100,000
+
+
+def live_shards(ST, rows: int, n: int) -> int:
+    """The data shards that hold rows of a microbatch of ``rows`` split
+    ``n`` ways as GSPMD splits it (the others hold its padding alone)."""
+    lo, hi = ST.shard_rows(rows, n)
+    return sum(1 for a, b in zip(lo, hi) if b > a)
+
+
+def phase_shard(torch, np):
+    """The sharded LM path on the card (``models/sharding.py``'s plans,
+    ``launch.steps``' sharded step, the expert-parallel MoE, the dry run).
+
+    (a) qwen2-0.5b at its published width and depth (bfloat16 compute over
+        float32 master weights), ``train_lm``'s batch of 4 x 2048 tokens in
+        two microbatches with remat, on a 2 x 2 ``(data, model)`` mesh of
+        ``cuda:0``: one ZeRO-3 step ("fsdp_flat": four data shards) and one
+        "tp" step (gather-at-use compute; two data shards), each against
+        the unsharded ``make_train_step`` under the same launch context on
+        the same state (loss within 5e-3, each first-moment leaf within
+        2^-5 of its max), timed beside it; the mesh's collectives equal
+        ``dryrun.step_collectives``; ``scatter_add`` once a microbatch on
+        each data shard that holds rows of it (a microbatch of 2 rows over
+        4 data shards: two hold a row, two GSPMD's padding alone); the
+        ZeRO-3 step again inside ``plain_versions()``;
+        then both at full width and 4 layers in float32 within 1e-4;
+    (b) phi3.5-moe at full width (depth cut to fit with AdamW state) on
+        ``TokenStream``'s Zipf(1.3) ids (``train_lm``'s traffic), 4 x 2048
+        tokens in two microbatches: the expert-parallel MoE at
+        ``data=1 x model=4`` against the local path on the first layer's
+        input for those tokens, their embedding (load and dropped count
+        exactly, output within 1e-4 in float32); one "ep" step at 1 x 4
+        and one "ep_fsdp" step at 2 x 2, their collectives equal to the
+        formula;
+    (c) the dry run's qwen2-0.5b ``train_4k`` cell at the production
+        16 x 16 mesh under each strategy, and ``dryrun_assoc`` at 512
+        shards (the group cut), its bytes printed first."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import dryrun_assoc as DA
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import sharding as SD
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+
+    t_phase = time.perf_counter()
+    out = {"legs_s": {}, "launches": {}, "steps": {}}
+
+    def leg_done(name, t0=[t_phase]):
+        now = time.perf_counter()
+        out["legs_s"][name] = now - t0[0]
+        t0[0] = now
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def rel(a, b) -> float:
+        scale = float(b.abs().max())
+        return float((a.float() - b.float()).abs().max()) / (scale if scale else 1.0)
+
+    opt_cfg = adamw.AdamWConfig(warmup_steps=0)
+    mesh = make_local_mesh(data=SHARD_MESH[0], model=SHARD_MESH[1], device=DEVICE)
+
+    def sharded_leg(cfg, state, batch, strategy, tag, leaf_rel, loss_rel, reps=2, n_micro=TRAIN_MICRO):
+        """One strategy on ``mesh`` against the unsharded step (same launch
+        context, same state): the checks, the times, the launches."""
+        seq = batch["tokens"].shape[1]
+        with ST.strategy_context(mesh, strategy) as (plan, ep_axis):
+            want_step = ST.make_train_step(cfg, opt_cfg, n_micro=n_micro, ep_axis=ep_axis)
+            (want, wm), w_ms = timed(want_step, state, batch)
+            placed = ST.place_train_state(state, cfg, mesh, plan)
+            bx = SD.batch_axes(cfg, mesh, plan)
+            step = ST.make_train_step(cfg, opt_cfg, n_micro=n_micro, ep_axis=ep_axis, dp_spec=bx)
+            mesh.reset_collectives()
+            zero_counts()
+            (new, m), s_ms = timed(step, placed, batch)
+            launches = read_counts()
+            counted = dict(mesh.collectives), dict(mesh.collective_bytes)
+            times = [s_ms]
+            for _ in range(reps - 1):
+                times.append(timed(step, placed, batch)[1])
+            w_times = [w_ms] + [timed(want_step, state, batch)[1] for _ in range(reps - 1)]
+        d = mesh.axis_size(bx)
+        live = live_shards(ST, batch["tokens"].shape[0] // n_micro, d)
+        check(launches["scatter_add"] == live * n_micro,
+              (tag, "scatter_add once a data shard holding rows a microbatch", launches, d, live, n_micro))
+        check(counted == DR.step_collectives(cfg, mesh, strategy, n_micro, batch["tokens"].shape[0], seq),
+              (tag, "the mesh's collectives equal the dry run's formula", counted))
+        loss_err = abs(float(m["loss"]) - float(wm["loss"])) / abs(float(wm["loss"]))
+        got = ST.gather_train_state(new)
+        worst = max(rel(a, b) for a, b in zip(tree_leaves(got["opt"]["m"]), tree_leaves(want["opt"]["m"])))
+        check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(got["params"])), (tag, "finite params"))
+        check(loss_err <= loss_rel and worst <= leaf_rel, (tag, "sharded against unsharded", loss_err, worst))
+        res = {"strategy": strategy, "data_shards": d, "data_shards_with_rows": live, "loss": float(m["loss"]), "unsharded_loss": float(wm["loss"]),
+               "loss_rel_err": loss_err, "worst_moment_leaf_rel_err": worst, "sharded_ms": times,
+               "unsharded_ms": w_times, "collectives": counted[0], "collective_bytes": counted[1],
+               "launches": launches}
+        log(f"[shard] {tag}: loss {float(m['loss']):.5f} (unsharded {float(wm['loss']):.5f}, rel {loss_err:.2e}); "
+            f"worst moment leaf {worst:.2e}; sharded {[round(t, 1) for t in times]} ms against unsharded "
+            f"{[round(t, 1) for t in w_times]} ms; collectives {counted[0]} ({counted[1]} bytes a device); "
+            f"launches {launches}")
+        return res, got, placed, step
+
+    # ---- (a) qwen2-0.5b at full width and depth
+    cfg = get_config(TRAIN_ARCH)
+    host = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=TRAIN_SEED).batch_at(0)
+    batch = {k: torch.from_numpy(x).to(DEVICE) for k, x in host.items()}
+    state = ST.init_train_state(torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED), cfg, DEVICE)
+    nbytes = tree_bytes(state["params"])
+    log(f"[shard] (a) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype} compute over "
+        f"{nbytes / 1e9:.2f} GB of float32 weights; batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} "
+        f"microbatches, remat; mesh {mesh.shape} of {mesh.device_list[0]}; no reductions")
+    for strategy in ("fsdp_flat", "tp"):
+        res, got, placed, step = sharded_leg(cfg, state, batch, strategy, f"(a) {strategy}", SHARD_LEAF_REL,
+                                             SHARD_LOSS_REL)
+        out["steps"][strategy] = res
+        out["launches"][f"shard_{strategy}"] = res["launches"]
+        if strategy == "fsdp_flat":  # the path inside plain_versions()
+            with ST.strategy_context(mesh, strategy):
+                zero_counts()
+                with kernels.plain_versions():
+                    plain, _ = step(placed, batch)
+                    torch.cuda.synchronize()
+                p_launches = read_counts()
+            check(sum(p_launches.values()) == 0, ("no launch inside plain_versions()", p_launches))
+            plain = ST.gather_train_state(plain)
+            pairs = list(zip(tree_leaves(got), tree_leaves(plain)))
+            bits = all(torch.equal(a, b) for a, b in pairs)
+            check(all(torch.allclose(a, b, rtol=1e-6, atol=0) for a, b in pairs),
+                  "(a) fsdp_flat: the kernels against plain_versions(), within rtol 1e-6")
+            res["plain_versions_bit_identical"] = bits
+            log(f"[shard] (a) fsdp_flat inside plain_versions(): "
+                f"{'bit-identical to' if bits else 'within rtol 1e-6 of'} the kernels' step")
+            del plain, pairs
+        del got, placed, step
+        free(torch)
+    del state
+    free(torch)
+    leg_done("a_bf16")
+    fcfg = dataclasses.replace(cfg, **SHARD_FP32_CUT)
+    fstate = ST.init_train_state(torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED), fcfg, DEVICE)
+    out["launches"]["shard_fp32"] = {}
+    for strategy in ("fsdp_flat", "tp"):
+        res, got, placed, step = sharded_leg(fcfg, fstate, batch, strategy, f"(a) float32 {strategy}",
+                                             SHARD_FP32_REL, SHARD_FP32_REL, reps=1)
+        out["steps"][f"float32_{strategy}"] = res
+        for k, v in res["launches"].items():
+            out["launches"]["shard_fp32"][k] = out["launches"]["shard_fp32"].get(k, 0) + v
+        del got, placed, step
+    del fstate
+    free(torch)
+    leg_done("a_fp32")
+
+    # ---- (b) phi3.5-moe at full width: expert parallelism
+    ecfg = get_config(SHARD_EP_ARCH)
+    total = torch.cuda.get_device_properties(0).total_memory
+    for layers in (2, 1):
+        pb = tree_bytes(TF.init_params(None, dataclasses.replace(ecfg, n_layers=layers), device="meta"))
+        # the placed params, m and v, the new ones, two data shards' float32
+        # gradients, the gathered weights, and room to run
+        need = 9 * pb + 8e9
+        if need <= total:
+            break
+    ecfg = dataclasses.replace(ecfg, n_layers=layers)
+    log(f"[shard] (b) {ecfg.name}: d_model {ecfg.d_model}, {ecfg.moe.n_experts} experts, top-{ecfg.moe.top_k}, "
+        f"d_expert {ecfg.moe.d_expert}, vocab {ecfg.vocab:,}; float32 weights {pb / 1e9:.2f} GB at {layers} "
+        f"layer(s) (needs {need / 1e9:.1f} of {total / 1e9:.1f} GB with AdamW state and two data shards' "
+        f"gradients); reduced: n_layers {get_config(SHARD_EP_ARCH).n_layers} -> {layers}")
+
+    def fresh():
+        return ST.init_train_state(torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED), ecfg, DEVICE)
+
+    # train_lm's traffic: TokenStream's Zipf(1.3) ids, as leg (a) and phase_train take
+    ehost = TokenStream(ecfg.vocab, 2 * SHARD_EP_BATCH, SHARD_EP_SEQ, seed=TRAIN_SEED).batch_at(0)
+    ebatch = {k: torch.from_numpy(v).to(DEVICE) for k, v in ehost.items()}
+    distinct = int(torch.unique(ebatch["tokens"]).numel())
+    estate = fresh()
+    eplan = TF.build_plan(ecfg)
+    si, gi = next((si, gi) for si, st in enumerate(eplan) for gi, g in enumerate(st.specs) if g.has_moe)
+    moe_p = estate["params"]["stages"][si][gi]["moe"]  # the first MoE layer's
+    if eplan[si].reps > 1:
+        moe_p = TF.layer_of(moe_p, 0)
+    with torch.no_grad():
+        # the first layer's input for the step's tokens: their embedding, in float32
+        x = L.embed_tokens(estate["params"]["embed"], ecfg, ebatch["tokens"], torch.float32)
+        want, waux = MOE.apply_moe(moe_p, ecfg, x, ep_axis=None)
+        emesh = make_local_mesh(data=1, model=4, device=DEVICE)
+        MOE.EP_CONTEXT.update(mesh=emesh, dp="data")
+        try:
+            got_out, gaux = MOE.apply_moe(moe_p, ecfg, x, ep_axis="model")
+        finally:
+            MOE.EP_CONTEXT.update(mesh=None, dp=None)
+    ep_err = rel(got_out, want)
+    check(torch.equal(gaux["expert_load"], waux["expert_load"]), "(b) EP load equals the local path's")
+    check(int(gaux["moe_dropped"]) == int(waux["moe_dropped"]), "(b) EP dropped count equals the local path's")
+    check(ep_err <= SHARD_FP32_REL, ("(b) EP output against the local path", ep_err))
+    n_tok = x.shape[0] * x.shape[1]
+    out["ep_vs_local"] = {"rel_err": ep_err, "expert_load": waux["expert_load"].tolist(),
+                          "moe_dropped": int(waux["moe_dropped"]), "tokens": n_tok, "distinct_ids": distinct,
+                          "assignments": n_tok * ecfg.moe.top_k}
+    log(f"[shard] (b) EP at 1 x 4 against the local path on the embedding of {2 * SHARD_EP_BATCH} x "
+        f"{SHARD_EP_SEQ} TokenStream tokens ({distinct:,} distinct ids of {ecfg.vocab:,}), float32: output within "
+        f"{ep_err:.2e} of its max; load {out['ep_vs_local']['expert_load']} and dropped "
+        f"{out['ep_vs_local']['moe_dropped']} of {n_tok * ecfg.moe.top_k} assignments equal")
+    del got_out, want, x, estate, moe_p
+    free(torch)
+    for strategy, (dd, mm) in (("ep", (1, 4)), ("ep_fsdp", (2, 2))):
+        smesh = make_local_mesh(data=dd, model=mm, device=DEVICE)
+        with ST.strategy_context(smesh, strategy) as (plan, ep_axis):
+            estate = fresh()
+            placed = ST.place_train_state(estate, ecfg, smesh, plan)
+            del estate  # the placed copy alone
+            bx = SD.batch_axes(ecfg, smesh, plan)
+            step = ST.make_train_step(ecfg, opt_cfg, n_micro=TRAIN_MICRO, ep_axis=ep_axis, dp_spec=bx)
+            smesh.reset_collectives()
+            zero_counts()
+            (new, m), ms = timed(step, placed, ebatch)
+            launches = read_counts()
+        counted = dict(smesh.collectives), dict(smesh.collective_bytes)
+        live = live_shards(ST, 2 * SHARD_EP_BATCH // TRAIN_MICRO, smesh.axis_size(bx))
+        check(launches["scatter_add"] == live * TRAIN_MICRO, (strategy, "scatter_add", launches))
+        check(counted == DR.step_collectives(ecfg, smesh, strategy, TRAIN_MICRO, 2 * SHARD_EP_BATCH, SHARD_EP_SEQ),
+              (strategy, "collectives equal the formula", counted))
+        check(np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])), (strategy, "finite loss", m))
+        out["steps"][strategy] = {"mesh": dict(smesh.shape), "loss": float(m["loss"]), "ms": ms,
+                                  "collectives": counted[0], "collective_bytes": counted[1], "launches": launches}
+        out["launches"][f"shard_{strategy}"] = launches
+        log(f"[shard] (b) {strategy} step at {smesh.shape}: loss {float(m['loss']):.4f}, {ms:.1f} ms, collectives "
+            f"{counted[0]}, launches {launches}")
+        del placed, new, step
+        free(torch)
+    leg_done("b_ep")
+
+    # ---- (c) the dry run at the production mesh, and dryrun_assoc
+    pmesh = make_production_mesh(device=DEVICE)
+    out["dryrun"] = {}
+    for strategy in ST.STRATEGIES:
+        cell = DR.plan_cell(TRAIN_ARCH, "train_4k", pmesh, strategy)
+        r = cell["roofline"]
+        out["dryrun"][strategy] = {"memory": cell["memory"], "n_micro": cell["n_micro"],
+                                   "collectives": cell["collectives"]["calls"],
+                                   "collective_bytes": cell["collectives"]["bytes"],
+                                   "t_compute_ms": r["t_compute_s"] * 1e3, "t_memory_ms": r["t_memory_s"] * 1e3,
+                                   "t_collective_ms": r["t_collective_s"] * 1e3, "bottleneck": r["bottleneck"],
+                                   "executor_only": cell["executor_only"]}
+        log(f"[shard] (c) dry run {TRAIN_ARCH} train_4k at {pmesh.shape} under {strategy}: "
+            f"{json.dumps(out['dryrun'][strategy])}")
+    zero_counts()
+    d, g = SHARD_ASSOC
+    assoc = DA.run(d, g, DEVICE, log=lambda s: log(f"[shard] (c) dryrun_assoc {s}"))
+    a_launches = read_counts()
+    par, sh = assoc[f"parallel_hier_{d}"], assoc[f"sharded_assoc_{d}"]
+    check(par["update_path_collective_free"], ("(c) the paper design's update holds no collective", par))
+    check(sh["routes_via_all_to_all"], ("(c) ShardedAssoc routes by all-to-all", sh))
+    check(a_launches["hier_cascade"] + a_launches["sort_dedup"] > 0, ("(c) dryrun_assoc's kernels", a_launches))
+    out["dryrun_assoc"] = {**assoc, "reduced": {"group": [100_000, g]}, "launches": a_launches}
+    out["launches"]["shard_assoc"] = a_launches
+    log(f"[shard] (c) dryrun_assoc at D={d}, group {g} (cut from 100,000): parallel {par['collectives']} "
+        f"in {par['update_s']:.2f} s, sharded {sh['collectives']} in {sh['update_s']:.2f} s, dropped "
+        f"{sh['dropped']}; launches {a_launches}")
+    free(torch)
+    leg_done("c_dryrun")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[shard] phase_shard {out['wall_s']:.1f} s: {out['legs_s']}")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3214,6 +3519,8 @@ def main() -> int:
     lm = phase_lm(torch, np)
     free(torch)
     train = phase_train(torch, np)
+    free(torch)
+    shard = phase_shard(torch, np)
     free(torch)
     data = phase_data(torch, np)
     sess8, main_run = phase_main(torch, np, data)
@@ -3258,6 +3565,7 @@ def main() -> int:
              "algebra": algebra["launches"], "embed_grad": embed["launches"],
              "fleet": fleet["launches"], **mesh["launches"], "lm_serve": lm["launches"],
              "lm_train": train["launches"], "train_lm": train["train_lm"]["launches"],
+             **shard["launches"],
              **{f"bench_{sec}": c for sec, c in bench["launches"].items()}}
     err = max(ops_err, main_run["err"], read["err"], single["err"], algebra["err"], served["err"],
               types_err, mesh["err"])
@@ -3400,6 +3708,7 @@ def main() -> int:
     }))
     log("[lm-metrics] " + json.dumps({"card": card, **{k: v for k, v in lm.items() if k != "launches"}}))
     log("[train-metrics] " + json.dumps({"card": card, **train}))
+    log("[shard-metrics] " + json.dumps({"card": card, **{k: v for k, v in shard.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({

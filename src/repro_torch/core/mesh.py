@@ -1,8 +1,9 @@
 """Device meshes, placement and collectives in one process (the port's
 counterpart of ``jax.sharding.Mesh``, ``PartitionSpec``/``NamedSharding``,
 ``jax.device_put``, ``shard_map``'s per-device view and the ``lax``
-collectives the reference's mesh path uses: ``psum``, ``pmax``,
-``all_to_all``, ``axis_index``).
+collectives the reference's mesh and sharded-LM paths use: ``psum``,
+``pmax``, ``all_to_all``, ``all_gather``, ``psum_scatter``,
+``axis_index``).
 
 A :class:`Mesh` is an n-d grid of ``torch.device``\\ s held by one
 process, as the reference's mesh is held by one controller running one
@@ -19,11 +20,12 @@ row-major order of ``mesh.devices`` (:attr:`Mesh.device_list`): what
 such sequences and return one.  Each call counts once in
 :attr:`Mesh.collectives` under the name XLA's HLO gives the reference's
 collective (``psum``/``pmax``: ``all-reduce``; ``all_to_all``:
-``all-to-all``); the reference's other three kinds (``all-gather``,
-``reduce-scatter``, ``collective-permute``) are counted too, and stay zero
-while no ported caller needs their operations.  Data moves
-between two distinct devices with ``.to(device, non_blocking=True)`` from
-the calling thread; on a repeated device it does not move.  Placement
+``all-to-all``; ``all_gather``: ``all-gather``; ``psum_scatter``:
+``reduce-scatter``; ``collective-permute`` stays zero: no ported caller
+needs it), and adds one device's result bytes to
+:attr:`Mesh.collective_bytes` (the per-chip bytes a roofline reads).  Data
+moves between two distinct devices with ``.to(device, non_blocking=True)``
+from the calling thread; on a repeated device it does not move.  Placement
 (:func:`device_put`) and reading a placed value back (:meth:`Sharded.gather`)
 are transfers, not collectives, as in the reference.
 """
@@ -31,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,21 +44,30 @@ COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "coll
 
 
 class PartitionSpec(tuple):
-    """How a leaf lies over a mesh: ``P()`` replicated, ``P("data")`` or
-    ``P(("data", "model"))`` its leading dimension split over those axes
-    (row-major over them) and replicated over the others.  The port splits
-    leading dimensions only; later entries must be ``None``."""
+    """How a leaf lies over a mesh: entry ``i`` says how dimension ``i`` is
+    split: ``None`` not at all, an axis name or a tuple of them over those
+    axes (row-major over them); missing trailing entries are ``None`` and
+    the leaf is replicated over the axes it does not name.  ``P()`` is
+    replicated, ``P("data")`` splits the leading dimension,
+    ``P(None, "model")`` the second, ``P(("data", "model"), None)`` the
+    leading one over both axes."""
 
     def __new__(cls, *parts):
         return super().__new__(cls, parts)
 
+    def dim_axes(self, i: int) -> Tuple[str, ...]:
+        """The axes dimension ``i`` is split over (``()``: not split)."""
+        p = self[i] if i < len(self) else None
+        if p is None:
+            return ()
+        return tuple(p) if isinstance(p, (tuple, list)) else (p,)
+
     @property
     def axes(self) -> Tuple[str, ...]:
-        if any(p is not None for p in self[1:]):
-            raise NotImplementedError(f"{self!r}: the port splits a leaf on its leading dimension only")
-        if not self or self[0] is None:
-            return ()
-        return tuple(self[0]) if isinstance(self[0], (tuple, list)) else (self[0],)
+        """Every axis the leaf is split over, dimension by dimension: a
+        device's block is numbered row-major over them
+        (:meth:`Mesh.chunk_of`)."""
+        return tuple(a for i in range(len(self)) for a in self.dim_axes(i))
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return f"PartitionSpec{tuple(self)!r}"
@@ -84,6 +95,8 @@ class Mesh:
         self.size = len(self.device_list)
         #: collectives run over this mesh, by kind (see the module docstring)
         self.collectives: Dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
+        #: one device's result bytes of those collectives, by kind
+        self.collective_bytes: Dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
 
     @classmethod
     def over(cls, kind, n: int, axis: str = "data", repeat: bool = False) -> "Mesh":
@@ -110,6 +123,17 @@ class Mesh:
 
     def reset_collectives(self) -> None:
         self.collectives = dict.fromkeys(COLLECTIVES, 0)
+        self.collective_bytes = dict.fromkeys(COLLECTIVES, 0)
+
+    def count(self, kind: str, result: torch.Tensor) -> None:
+        """Count one collective of ``kind`` whose result on a device is
+        ``result`` (its bytes go to :attr:`collective_bytes`)."""
+        self.collectives[kind] += 1
+        self.collective_bytes[kind] += result.numel() * result.element_size()
+
+    def axis_size(self, axis) -> int:
+        """The size of an axis, or the product over a tuple of axes."""
+        return math.prod(self.shape[a] for a in axis_tuple(axis))
 
     def distinct_devices(self) -> int:
         return len(set(self.device_list))
@@ -119,16 +143,24 @@ class Mesh:
         pos = self.axis_names.index(axis)
         return [int(c) for c in np.indices(self.devices.shape)[pos].ravel()]
 
-    def _groups(self, axis: str) -> np.ndarray:
+    def _groups(self, axis) -> np.ndarray:
         """``[n_groups, size(axis)]`` flat device indices: each row the
-        devices that share every coordinate but ``axis``, in axis order."""
-        pos = self.axis_names.index(axis)
+        devices that share every coordinate but ``axis`` (a name or a tuple
+        of names), in axis order (row-major over a tuple)."""
+        axes = axis_tuple(axis)
+        pos = [self.axis_names.index(a) for a in axes]
         idx = np.arange(self.size).reshape(self.devices.shape)
-        return np.moveaxis(idx, pos, -1).reshape(-1, self.shape[axis])
+        return np.moveaxis(idx, pos, list(range(-len(pos), 0))).reshape(-1, self.axis_size(axes))
+
+    def groups(self, axis) -> List[List[int]]:
+        """The device groups a collective over ``axis`` runs in (flat
+        indices into :attr:`device_list`)."""
+        return [[int(i) for i in g] for g in self._groups(axis)]
 
     def chunk_of(self, spec: PartitionSpec) -> Tuple[List[int], int]:
-        """Which chunk of a leading dimension split by ``spec`` each device
-        holds, and the number of chunks."""
+        """Which block of a leaf split by ``spec`` each device holds
+        (numbered row-major over ``spec.axes``), and the number of
+        blocks."""
         axes = spec.axes
         for a in axes:
             if a not in self.shape:
@@ -155,7 +187,7 @@ class Mesh:
                 acc = op(acc, self._put(xs[j], g[0]))
             for j in g:
                 out[j] = self._put(acc, j)
-        self.collectives["all-reduce"] += 1
+        self.count("all-reduce", out[0])
         return out
 
     # -- the collectives ------------------------------------------------------
@@ -179,7 +211,43 @@ class Mesh:
                 raise ValueError(f"all_to_all over {axis!r} needs a leading dimension of {len(g)}")
             for j, dst in enumerate(g):
                 out[dst] = torch.stack([self._put(xs[i][j], dst) for i in g])
-        self.collectives["all-to-all"] += 1
+        self.count("all-to-all", out[0])
+        return out
+
+    def all_gather(self, xs, axis, dim: int = 0) -> List[torch.Tensor]:
+        """``lax.all_gather(x, axis, axis=dim, tiled=True)``: every device
+        gets its group's blocks concatenated along ``dim`` in axis order
+        (one result per distinct device of a group, shared where the
+        device repeats)."""
+        self._check(xs)
+        out: List[Any] = [None] * self.size
+        for g in self._groups(axis):
+            made: Dict[torch.device, torch.Tensor] = {}
+            for j in g:
+                dev = self.device_list[j]
+                if dev not in made:
+                    made[dev] = torch.cat([self._put(xs[i], j) for i in g], dim)
+                out[j] = made[dev]
+        self.count("all-gather", out[0])
+        return out
+
+    def psum_scatter(self, xs, axis, dim: int = 0) -> List[torch.Tensor]:
+        """``lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
+        the group's sum (in axis order), device ``j`` of a group keeping
+        block ``j`` of it along ``dim`` as a buffer of its own."""
+        self._check(xs)
+        out: List[Any] = [None] * self.size
+        for g in self._groups(axis):
+            n = xs[g[0]].shape[dim]
+            if n % len(g):
+                raise ValueError(f"psum_scatter over {axis!r} needs dimension {dim} a multiple of {len(g)}, got {n}")
+            acc = xs[g[0]]
+            for j in g[1:]:
+                acc = acc + self._put(xs[j], g[0])
+            step = n // len(g)
+            for k, j in enumerate(g):
+                out[j] = acc.narrow(dim, k * step, step).to(self.device_list[j], copy=True)
+        self.count("reduce-scatter", out[0])
         return out
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
@@ -198,24 +266,81 @@ class NamedSharding:
 class Sharded:
     """A leaf placed over a mesh: ``shards[i]`` is device ``i``'s block
     (devices in :attr:`Mesh.device_list` order); devices that a spec
-    replicates hold equal blocks."""
+    replicates hold equal blocks.  ``shape`` is the leaf's own shape where
+    its blocks carry padding (an uneven split, padded as GSPMD pads it:
+    ``ceil(n / k)`` a block, zeros at the end); ``None`` where they tile it
+    exactly."""
 
     sharding: NamedSharding
     shards: Tuple[torch.Tensor, ...]
+    shape: Optional[Tuple[int, ...]] = None
 
     def gather(self, device=None) -> torch.Tensor:
         """The whole leaf on one device (the mesh's first by default), from
-        one replica of each chunk."""
+        one replica of each block, padding stripped."""
         mesh = self.sharding.mesh
+        spec = self.sharding.spec
         device = mesh.device_list[0] if device is None else torch.device(device)
-        chunks, n = mesh.chunk_of(self.sharding.spec)
+        chunks, n = mesh.chunk_of(spec)
         first = {c: i for i, c in reversed(list(enumerate(chunks)))}
         parts = [self.shards[first[c]].to(device) for c in range(n)]
-        return torch.cat(parts) if self.sharding.spec.axes else parts[0]
+        split = [i for i in range(parts[0].ndim) if spec.dim_axes(i)]
+        if not split:
+            out = parts[0]
+        elif split == [0]:
+            out = torch.cat(parts)
+        else:
+            dims = [mesh.axis_size(spec.dim_axes(i)) for i in split]
+            block = parts[0].shape
+            full = list(block)
+            for i, k in zip(split, dims):
+                full[i] *= k
+            out = torch.empty(full, dtype=parts[0].dtype, device=device)
+            for c, part in enumerate(parts):
+                idx = [slice(None)] * len(full)
+                for i, ci in zip(split, np.unravel_index(c, dims)):
+                    idx[i] = slice(int(ci) * block[i], (int(ci) + 1) * block[i])
+                out[tuple(idx)] = part
+        if self.shape is not None and tuple(out.shape) != tuple(self.shape):
+            out = out[tuple(slice(0, k) for k in self.shape)]
+        return out
 
     def __array__(self, dtype=None, copy=None):
         out = self.gather("cpu").numpy()
         return out if dtype is None else out.astype(dtype)
+
+
+def axis_tuple(axis) -> Tuple[str, ...]:
+    """Mesh axes as a tuple: a name, a tuple or list of names, or ``None``
+    (no axis)."""
+    if axis is None:
+        return ()
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def block_shape(mesh: Mesh, spec: PartitionSpec, shape) -> Tuple[int, ...]:
+    """The shape of a device's block of a leaf of ``shape`` split by
+    ``spec``: ``ceil(n / k)`` along a dimension split ``k`` ways."""
+    return tuple(-(-n // mesh.axis_size(spec.dim_axes(i))) if spec.dim_axes(i) else n
+                 for i, n in enumerate(shape))
+
+
+def block_of(t: torch.Tensor, mesh: Mesh, spec: PartitionSpec, i: int) -> torch.Tensor:
+    """Device ``i``'s block of the whole leaf ``t`` (a view where no padding
+    is needed; zeros fill an uneven split's last blocks)."""
+    bshape = block_shape(mesh, spec, t.shape)
+    chunks, _ = mesh.chunk_of(spec)
+    split = [d for d in range(t.ndim) if spec.dim_axes(d)]
+    coords = np.unravel_index(chunks[i], [mesh.axis_size(spec.dim_axes(d)) for d in split]) if split else ()
+    out = t
+    for d, c in zip(split, coords):
+        lo = int(c) * bshape[d]
+        out = out.narrow(d, min(lo, t.shape[d]), max(0, min(bshape[d], t.shape[d] - lo)))
+    if tuple(out.shape) != bshape:
+        full = torch.zeros(bshape, dtype=t.dtype, device=t.device)
+        full[tuple(slice(0, k) for k in out.shape)] = out
+        out = full
+    return out
 
 
 def _tensor(x) -> torch.Tensor:
@@ -263,29 +388,39 @@ def tree_map(fn, tree, prefix):
     return _rebuild(tree, [tree_map(fn, k, p) for k, p in zip(kids, pk)])
 
 
-def device_put(x, sharding, copy: bool = False):
+def device_put(x, sharding, copy: bool = False, pad: bool = False):
     """Place ``x`` (a tensor, a numpy array, a :class:`Sharded` leaf, or a
     tree of them) by ``sharding`` (a :class:`NamedSharding`, or a tree of
-    them with ``x``'s structure down to them): each device gets its chunk
-    of the leading dimension, moved with ``.to(device, non_blocking=True)``.
-    A chunk already on its device is a view unless ``copy=True``, which
-    gives every device buffers of its own (state that is updated in place
-    needs them)."""
+    them with ``x``'s structure down to them): each device gets its block,
+    moved with ``.to(device, non_blocking=True)``.  A block already on its
+    device is a view unless ``copy=True``, which gives every device buffers
+    of its own (state that is updated in place needs them).  A split that
+    does not divide its dimension raises ``ValueError``; with ``pad=True``
+    it is padded as GSPMD pads it (:class:`Sharded`'s ``shape``)."""
 
     def put(leaf, sh: NamedSharding):
         if isinstance(leaf, Sharded):
             leaf = leaf.gather()
         t = _tensor(leaf)
-        mesh = sh.mesh
-        chunks, n = mesh.chunk_of(sh.spec)
-        if sh.spec.axes and (t.ndim == 0 or t.shape[0] % n):
-            raise ValueError(f"a leading dimension of {tuple(t.shape)[:1]} does not split into {n} chunks")
-        step = t.shape[0] // n if sh.spec.axes else 0
-        parts = [t[c * step:(c + 1) * step] if sh.spec.axes else t for c in range(n)]
+        mesh, spec = sh.mesh, sh.spec
+        for a in spec.axes:
+            if a not in mesh.shape:
+                raise ValueError(f"{spec!r} names axis {a!r}, not one of {mesh.axis_names}")
+        if any(spec.dim_axes(d) for d in range(t.ndim, len(spec))):
+            raise ValueError(f"{spec!r} has more entries than a leaf of shape {tuple(t.shape)} has dimensions")
+        even = all(t.shape[d] % mesh.axis_size(spec.dim_axes(d)) == 0 for d in range(t.ndim) if spec.dim_axes(d))
+        if not even and not pad:
+            raise ValueError(f"a leaf of {tuple(t.shape)} does not split into {mesh.chunk_of(spec)[1]} blocks "
+                             f"by {spec!r} (pad=True pads it as GSPMD does)")
+        chunks, _ = mesh.chunk_of(spec)
+        blocks: Dict[int, torch.Tensor] = {}
+        for i, c in enumerate(chunks):
+            if c not in blocks:
+                blocks[c] = block_of(t, mesh, spec, i)
         return Sharded(sh, tuple(
-            parts[c].to(dev, non_blocking=True, copy=copy)
+            blocks[c].to(dev, non_blocking=True, copy=copy)
             for c, dev in zip(chunks, mesh.device_list)
-        ))
+        ), None if even else tuple(t.shape))
 
     return tree_map(put, x, sharding)
 

@@ -1,0 +1,280 @@
+"""Pod-scale dry run of the port's sharded cells (the counterpart of
+``repro.launch.dryrun``).
+
+Usage:
+    python -m repro_torch.launch.dryrun --arch qwen2_0_5b --shape train_4k --mesh single
+    python -m repro_torch.launch.dryrun --all --mesh single --out experiments/dryrun_torch
+    python -m repro_torch.launch.dryrun --all --mesh multi --strategy fsdp_flat   # 2x16x16
+
+The reference lowers and compiles each cell at 256 or 512 forced devices
+and reads memory and collectives from the compiled program.  The port
+lowers nothing.  For each cell it writes, from the sharding plan and the
+``meta``-device shapes of the params, optimizer state, batch and cache:
+
+* the plan (each parameter path's PartitionSpec);
+* per-device bytes of params, optimizer state, batch and cache (the
+  counterpart of ``memory_analysis``' argument bytes; uneven splits padded
+  as GSPMD pads them);
+* ``n_micro`` (``shapes.grad_accum_steps``);
+* FLOPs and HBM bytes (``analysis.flops``) and the roofline terms on an
+  H100 (``analysis.roofline``);
+* for a train cell, the collectives the port's sharded step issues, by
+  kind: calls and one device's result bytes, from :func:`step_collectives`
+  (``launch.steps.sharded_train_step``'s schedule as a formula over the
+  plan; a test holds it to the mesh counters of real steps at 2 x 2).
+  The port runs prefill and decode unsharded, so those cells carry no
+  collectives (``"collectives": null``);
+* for a train cell, ``executor_only``: what the port's step adds because
+  it runs the data shards one at a time (:func:`executor_terms`), which
+  the roofline leaves out.
+
+The meshes are one device repeated (``launch.mesh``): nothing is
+allocated per shard.  ``--device`` defaults to ``cuda`` (the port's entry
+points do); ``--device cpu`` plans on a machine without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+import time
+import traceback
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.analysis import roofline as RL
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.mesh import COLLECTIVES, Mesh, axis_tuple, block_shape
+from repro_torch.launch import shapes as SH
+from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import sharding as SD
+from repro_torch.models import transformer as TF
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def tree_bytes_per_device(mesh: Mesh, tree, specs) -> int:
+    """One device's bytes of ``tree`` laid out by ``specs`` (its blocks,
+    padded)."""
+    return sum(math.prod(block_shape(mesh, spec, tuple(leaf.shape))) * leaf.element_size()
+               for (_, leaf), (_, spec) in zip(ST._named_leaves(tree), ST._named_leaves(specs)))
+
+
+def _n_moe_layers(cfg: ModelConfig) -> int:
+    return sum(1 for i in range(cfg.n_layers) if cfg.layer_has_moe(i)) if cfg.moe is not None else 0
+
+
+def step_collectives(
+    cfg: ModelConfig, mesh: Mesh, strategy: str, n_micro: int, batch: int, seq: int
+) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """The collectives one ``sharded_train_step`` of a ``[batch, seq]``
+    batch in ``n_micro`` microbatches issues over ``mesh`` under
+    ``strategy``: (calls by kind, one device's result bytes by kind), in
+    the order the step issues them (see its docstring)."""
+    calls = dict.fromkeys(COLLECTIVES, 0)
+    nbytes = dict.fromkeys(COLLECTIVES, 0)
+
+    def add(kind, shape, dtype, times=1):
+        calls[kind] += times
+        nbytes[kind] += times * math.prod(shape) * _itemsize(dtype)
+
+    with ST.strategy_context(mesh, strategy) as (plan, ep_axis):
+        cast = TF.ACT_CTX["cast_params"]
+        params = SH.params_struct(cfg)
+        specs = SD.param_specs(cfg, mesh, params, plan)
+        bx = SD.batch_axes(cfg, mesh, plan)
+        ep = ep_axis is not None and strategy in ("ep", "ep_fsdp")
+    baxes = axis_tuple(bx)
+    D = mesh.axis_size(baxes)
+    dtype = TF.compute_dtype(cfg)
+    named = [(names, leaf, spec) for (names, leaf), (_, spec) in
+             zip(ST._named_leaves(params), ST._named_leaves(specs))]
+
+    # the gathers at use, once a step
+    for names, leaf, spec in named:
+        if ep and ST._is_expert(names):
+            continue
+        dt = dtype if (cast and names[0] == "stages" and leaf.dtype == torch.float32) else leaf.dtype
+        shape = list(block_shape(mesh, spec, tuple(leaf.shape)))
+        for d in range(len(spec)):
+            k = mesh.axis_size(spec.dim_axes(d)) if spec.dim_axes(d) else 1
+            if k > 1:
+                shape[d] *= k
+                add("all-gather", shape, dt)
+
+    # each microbatch: its data shards' rows, the shards of padding alone idle
+    lo, hi = ST.shard_rows(batch // n_micro, D)
+    live = [h - l for l, h in zip(lo, hi) if h > l]
+    n_moe = _n_moe_layers(cfg)
+    tp = mesh.shape.get("model", 1)
+    for _ in range(n_micro):
+        if D > 1:
+            add("all-reduce", (2,), torch.int32)  # the valid-label counts
+        if ep and n_moe and tp > 1:
+            for rows in live:  # once a layer: the recompute stops before the combine (moe._group_psum)
+                add("all-reduce", (rows * seq, cfg.d_model), dtype, n_moe)  # the experts' outputs
+                add("all-reduce", (), torch.int64, n_moe)  # the dropped count
+        if ep and n_moe and D > 1:  # the loads over each data axis, a MoE layer (moe.EPLoads)
+            for a in baxes:
+                if mesh.shape[a] > 1:
+                    add("all-reduce", (cfg.moe.n_experts // tp,), torch.float32, n_moe)
+
+    # after the microbatches
+    if D > 1:
+        add("all-reduce", (n_micro, 2), torch.float32)  # the losses
+    for names, leaf, spec in named:
+        block = block_shape(mesh, spec, tuple(leaf.shape))
+        expert = ep and ST._is_expert(names)
+        shape = []
+        for d, b in enumerate(block):
+            inb = [a for a in spec.dim_axes(d) if a in baxes]
+            shape.append(b if expert else b * mesh.axis_size(tuple(inb)) if inb else b)
+        used = ()
+        for d in range(len(spec)):
+            inb = tuple(a for a in spec.dim_axes(d) if a in baxes)
+            if expert and any(a not in baxes for a in spec.dim_axes(d)):
+                inb = ()
+            if inb:
+                used += inb
+                shape[d] = block[d]
+                if mesh.axis_size(inb) > 1:
+                    add("reduce-scatter", shape, torch.float32)
+        rest = tuple(a for a in baxes if a not in used)
+        if rest and mesh.axis_size(rest) > 1:
+            add("all-reduce", block, torch.float32)
+    if mesh.size > 1:
+        add("all-reduce", (), torch.float32)  # the global norm
+    return calls, nbytes
+
+
+def executor_terms(cfg: ModelConfig, n_data: int, n_micro: int, batch: int, strategy: str) -> dict:
+    """What the port's step does beyond the reference's program because it
+    runs the data shards one at a time, kept out of the roofline: on the
+    local MoE path over several data shards (an MoE arch under "tp" or
+    "fsdp_flat"), a gradient-free first forward of every data shard a
+    microbatch (``moe.ShardStats``), and each MoE layer's load and
+    importance (``[2, E]`` float32 a shard) handed from one shard's run to
+    the next."""
+    lo, hi = ST.shard_rows(batch // n_micro, n_data)
+    live = sum(1 for a, b in zip(lo, hi) if b > a)
+    first_pass = cfg.moe is not None and live > 1 and strategy not in ("ep", "ep_fsdp")
+    return {
+        "gradient_free_first_pass": first_pass,
+        "first_pass_shard_forwards": n_micro * live if first_pass else 0,
+        "moe_stats_bytes": n_micro * _n_moe_layers(cfg) * live * 2 * cfg.moe.n_experts * 4 if first_pass else 0,
+    }
+
+
+def plan_cell(arch: str, shape_name: str, mesh: Mesh, strategy: str = "tp") -> dict:
+    """One cell's plan, per-device bytes, collectives and roofline."""
+    cfg = get_config(arch)
+    shape = SH.SHAPES[shape_name]
+    ok, reason = SH.cell_is_runnable(cfg, shape)
+    if not ok:
+        return {"arch": arch, "shape": shape_name, "strategy": strategy, "status": "skipped", "reason": reason}
+    t0 = time.time()
+    ax = SD.mesh_axes(mesh)
+    dp_size = math.prod(mesh.shape[a] for a in ax.dp)
+    n_chips = dp_size * mesh.shape[ax.tp]
+    with ST.strategy_context(mesh, strategy) as (plan, _):
+        params = SH.params_struct(cfg)
+        pspecs = SD.param_specs(cfg, mesh, params, plan)
+        memory = {"params_bytes_per_device": tree_bytes_per_device(mesh, params, pspecs)}
+        extra: dict = {}
+        collectives = None
+        if shape.kind == "train":
+            bx = SD.batch_axes(cfg, mesh, plan)
+            n_micro = SH.grad_accum_steps(cfg, shape, mesh.axis_size(bx))
+            opt = adamw.init(params)
+            memory["opt_bytes_per_device"] = tree_bytes_per_device(mesh, opt, SD.opt_specs(cfg, mesh, opt, plan))
+            binputs = SH.train_inputs(cfg, shape)
+            bspecs = SD.batch_specs(cfg, mesh, plan)
+            memory["batch_bytes_per_device"] = tree_bytes_per_device(
+                mesh, binputs, {k: bspecs[k] for k in binputs})
+            calls, nbytes = step_collectives(cfg, mesh, strategy, n_micro, shape.batch, shape.seq)
+            collectives = {"calls": calls, "bytes": nbytes,
+                           "source": "launch.dryrun.step_collectives (sharded_train_step's schedule)"}
+            extra = {"n_micro": n_micro,
+                     "executor_only": executor_terms(cfg, mesh.axis_size(bx), n_micro, shape.batch, strategy)}
+        elif shape.kind == "prefill":
+            binputs = SH.prefill_inputs(cfg, shape)
+            bspecs = SD.batch_specs(cfg, mesh)
+            memory["batch_bytes_per_device"] = tree_bytes_per_device(
+                mesh, binputs, {k: bspecs[k] for k in binputs})
+        else:
+            token, cache = SH.decode_inputs(cfg, shape)
+            cspecs = SD.cache_specs(cfg, mesh, cache, shape.batch)
+            memory["cache_bytes_per_device"] = tree_bytes_per_device(mesh, cache, cspecs)
+            tspec = SD.P(ax.dp_spec, None) if shape.batch >= dp_size else SD.P(None, None)
+            memory["batch_bytes_per_device"] = tree_bytes_per_device(mesh, token, tspec)
+    memory["total_bytes_per_device"] = sum(memory.values())
+    specs = {"/".join(names): list(spec) for names, spec in ST._named_leaves(pspecs)}
+    rl = RL.analyze(cfg, shape, n_chips, n_micro=extra.get("n_micro", 1),
+                    by_kind=collectives["bytes"] if collectives else None)
+    return {
+        "arch": arch,
+        "shape": shape_name,
+        "strategy": strategy,
+        "mesh": dict(mesh.shape),
+        "n_chips": n_chips,
+        "status": "planned",
+        "plan_s": round(time.time() - t0, 2),
+        **extra,
+        "plan": specs,
+        "memory": memory,
+        "collectives": collectives,
+        "roofline": rl.to_dict(),
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS)
+    ap.add_argument("--shape", choices=list(SH.SHAPES))
+    ap.add_argument("--mesh", choices=["single", "multi"], default="single")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--strategy", default="tp", choices=list(ST.STRATEGIES))
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--out", default="experiments/dryrun_torch")
+    ap.add_argument("--device", default=None, help="the meshes' device (default cuda)")
+    args = ap.parse_args(argv)
+    if not args.all and not (args.arch and args.shape):
+        ap.error("--arch and --shape, or --all")
+
+    mesh = make_production_mesh(multi_pod=args.mesh == "multi", device=args.device)
+    cells = [(a, s) for a in ARCH_IDS for s in SH.SHAPES] if args.all else [(args.arch, args.shape)]
+    os.makedirs(args.out, exist_ok=True)
+    failures = 0
+    for arch, shape in cells:
+        tag = f"{arch}x{shape}x{args.mesh}" + (f"x{args.tag}" if args.tag else "")
+        try:
+            res = plan_cell(arch, shape, mesh, strategy=args.strategy)
+        except Exception as e:  # a failure here is a bug in the system
+            failures += 1
+            res = {"arch": arch, "shape": shape, "strategy": args.strategy, "status": "FAILED",
+                   "error": f"{type(e).__name__}: {e}", "trace": traceback.format_exc()[-2000:]}
+        with open(os.path.join(args.out, f"{tag}.json"), "w") as f:
+            json.dump(res, f, indent=2)
+        line = {k: v for k, v in res.items() if k not in ("trace", "roofline", "memory", "plan", "collectives")}
+        if "roofline" in res:
+            r = res["roofline"]
+            line["bottleneck"] = r["bottleneck"]
+            line["t(c/m/x) ms"] = (f"{1e3 * r['t_compute_s']:.2f}/{1e3 * r['t_memory_s']:.2f}/"
+                                   f"{1e3 * r['t_collective_s']:.2f}")
+            line["gb/dev"] = round(res["memory"]["total_bytes_per_device"] / 2**30, 2)
+        if res.get("collectives"):
+            line["collectives"] = {k: v for k, v in res["collectives"]["calls"].items() if v}
+        print(json.dumps(line), flush=True)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

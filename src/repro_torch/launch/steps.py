@@ -14,11 +14,16 @@ param tree's leaves, so the tree, AdamW, checkpoints and
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import contextlib
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.mesh import Mesh, P, Sharded, axis_tuple, device_put
+from repro_torch.models import moe as MOE
 from repro_torch.models import serving as SV
+from repro_torch.models import sharding as SD
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, compression
@@ -62,14 +67,18 @@ def make_train_step(
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     batch: tokens [GB, S], labels [GB, S], optional frontend [GB, P, d];
-    ``GB`` a multiple of ``n_micro``.  ``dp_spec`` pins the microbatch
-    reshape's sharding over a data-parallel mesh in the reference; the
-    port has no such mesh yet."""
+    ``GB`` a multiple of ``n_micro``.
+
+    With ``dp_spec`` (the data-parallel mesh axes the batch shards over,
+    ``sharding.batch_axes``) the step runs over a mesh: ``state`` is placed
+    there (:func:`place_train_state`) and the step is
+    :func:`sharded_train_step`'s.  The reference pins the microbatch
+    reshape's sharding with it; the port runs each data shard's slice of
+    every microbatch on that shard's device."""
     if dp_spec is not None:
-        raise NotImplementedError(
-            "dp_spec (the data-parallel sharding of the microbatch reshape) belongs to the sharding "
-            "slice of the port (models/sharding.py, launch/mesh.py), which is not ported yet"
-        )
+        if comp_cfg.enabled:
+            raise NotImplementedError("top-k compression of a sharded step's gradients is not ported")
+        return lambda state, batch: sharded_train_step(cfg, opt_cfg, n_micro, ep_axis, dp_spec, state, batch)
     grad_fn = value_and_grad(cfg, ep_axis)
 
     def train_step(state, batch):
@@ -104,6 +113,402 @@ def make_train_step(
         return new_state, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the sharded step
+# ---------------------------------------------------------------------------
+
+STRATEGIES = ("tp", "fsdp_flat", "ep", "ep_fsdp")
+
+
+@contextlib.contextmanager
+def strategy_context(mesh: Mesh, strategy: str):
+    """The launch context of a sharding strategy over ``mesh`` (the
+    reference's ``dryrun.lower_cell`` prologue), restored on exit: "ep" and
+    "ep_fsdp" set ``moe.EP_CONTEXT`` (expert parallelism over "model");
+    "fsdp_flat" and "ep_fsdp" cast stage weights before their gathers
+    (``transformer.ACT_CTX``).  Yields ``(plan, ep_axis)``: the strategy
+    the param and opt specs take ("ep" plans as "tp") and the step's
+    ``ep_axis``."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"strategy must be one of {STRATEGIES}, got {strategy!r}")
+    ax = SD.mesh_axes(mesh)
+    saved = dict(MOE.EP_CONTEXT), dict(TF.ACT_CTX)
+    ep = strategy in ("ep", "ep_fsdp")
+    MOE.EP_CONTEXT.update(mesh=mesh if ep else None, dp=ax.dp_spec if ep else None, group=None)
+    TF.ACT_CTX.update(cast_params=strategy in ("fsdp_flat", "ep_fsdp"))
+    try:
+        yield ("tp" if strategy == "ep" else strategy), (None if strategy == "fsdp_flat" else "model")
+    finally:
+        MOE.EP_CONTEXT.update(saved[0])
+        TF.ACT_CTX.update(saved[1])
+
+
+def place_train_state(state, cfg: ModelConfig, mesh: Mesh, strategy: str = "tp"):
+    """``state`` (``{"params", "opt"}``) placed over ``mesh`` by
+    ``sharding.param_specs``/``opt_specs`` of ``strategy``: every device
+    gets buffers of its own, uneven splits padded as GSPMD pads them."""
+    specs = {
+        "params": SD.param_specs(cfg, mesh, state["params"], strategy),
+        "opt": SD.opt_specs(cfg, mesh, state["opt"], strategy),
+    }
+    return device_put(state, SD.shardings_of(mesh, specs), copy=True, pad=True)
+
+
+def gather_train_state(state, device=None):
+    """The whole state on one device (the mesh's first by default)."""
+    return TF.tree_map(lambda x: x.gather(device) if isinstance(x, Sharded) else x, state)
+
+
+def _named_leaves(tree, names=()):
+    """``(names, leaf)`` in :func:`tree_leaves` order (dict keys sorted),
+    names the dict keys along the path; a PartitionSpec is a leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], names + (k,))]
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return [x for t in tree for x in _named_leaves(t, names)]
+    return [(names, tree)]
+
+
+def _is_expert(names) -> bool:
+    return len(names) >= 2 and names[-2] == "moe" and names[-1] in ("wg", "wu", "wd")
+
+
+class _Plan:
+    """Where a sharded step's work lies on its mesh: the data shards (one
+    a block of the batch axes), each run on its first device (the
+    leader), and for the expert-parallel path each data shard's model
+    group."""
+
+    def __init__(self, mesh: Mesh, dp_spec, ep_axis):
+        self.mesh = mesh
+        self.batch_axes = axis_tuple(dp_spec)
+        self.shard_of, self.n_data = mesh.chunk_of(P(self.batch_axes))
+        self.leaders = [self.shard_of.index(c) for c in range(self.n_data)]
+        self.ep = ep_axis is not None and MOE.EP_CONTEXT["mesh"] is not None
+        self.ep_axis = ep_axis
+        if self.ep:
+            by_dev = {g[0]: g for g in mesh.groups(ep_axis)}
+            self.groups = [next(g for g in by_dev.values() if lead in g) for lead in self.leaders]
+
+    def device(self, c: int) -> torch.device:
+        return self.mesh.device_list[self.leaders[c]]
+
+
+def _gather_params(plan: _Plan, cfg: ModelConfig, named, cast: bool):
+    """Each leaf at use: the whole leaf a device (``all_gather`` over each
+    split dimension, padding stripped), float32 stage weights cast to the
+    compute dtype first under ``ACT_CTX["cast_params"]``; the expert
+    weights of the expert-parallel path stay blocks."""
+    mesh = plan.mesh
+    dtype = TF.compute_dtype(cfg)
+    out = []
+    for names, sh in named:
+        blocks = list(sh.shards)
+        if plan.ep and _is_expert(names):
+            out.append(blocks)
+            continue
+        if cast and names[0] == "stages" and blocks[0].dtype == torch.float32 and dtype != torch.float32:
+            made = {}
+            blocks = [made.setdefault(id(b), b.to(dtype)) for b in blocks]
+        spec = sh.sharding.spec
+        for d in range(len(spec)):
+            if spec.dim_axes(d) and mesh.axis_size(spec.dim_axes(d)) > 1:
+                blocks = mesh.all_gather(blocks, spec.dim_axes(d), dim=d)
+        if sh.shape is not None:
+            crop = tuple(slice(0, k) for k in sh.shape)
+            made = {}
+            blocks = [made.setdefault(id(b), b[crop]) for b in blocks]
+        out.append(blocks)
+    return out
+
+
+def _shard_params(plan: _Plan, params_sh, named, gathered, c: int):
+    """Data shard ``c``'s param tree: its leader's whole leaves, and its
+    model group's expert blocks (a list, one a model shard)."""
+    lead = plan.leaders[c]
+    vals = []
+    for (names, _), blocks in zip(named, gathered):
+        if plan.ep and _is_expert(names):
+            vals.append([blocks[j] for j in plan.groups[c]])
+        else:
+            vals.append(blocks[lead])
+    return tree_unflatten(params_sh, vals)
+
+
+def _padded_shape(mesh: Mesh, sh: Sharded) -> Tuple[int, ...]:
+    """The extent a placed leaf's blocks tile: its shape, padded where a
+    split is uneven."""
+    spec = sh.sharding.spec
+    return tuple(b * (mesh.axis_size(spec.dim_axes(d)) if spec.dim_axes(d) else 1)
+                 for d, b in enumerate(sh.shards[0].shape))
+
+
+def _select_local(x: torch.Tensor, mesh: Mesh, spec, d: int, keep: Tuple[str, ...], i: int) -> torch.Tensor:
+    """Device ``i``'s part of dimension ``d`` (split over ``spec``'s axes)
+    along the axes not in ``keep``: the dimension viewed as one index an
+    axis (row-major) and a block, those axes fixed at device ``i``'s
+    coordinates; the ``keep`` axes' blocks remain, in their order."""
+    axes = spec.dim_axes(d)
+    ks = [mesh.shape[a] for a in axes]
+    block = x.shape[d] // math.prod(ks)
+    v = x.reshape(x.shape[:d] + tuple(ks) + (block,) + x.shape[d + 1:])
+    coord = {a: mesh.axis_index(a)[i] for a in axes}
+    idx = [slice(None)] * v.ndim
+    for j, a in enumerate(axes):
+        if a not in keep:
+            idx[d + j] = coord[a]
+    v = v[tuple(idx)]
+    return v.reshape(x.shape[:d] + (-1,) + x.shape[d + 1:])
+
+
+def _reduce_grads(plan: _Plan, named, accs):
+    """Each leaf's summed gradient, in its own spec's blocks: a device's
+    data shard's gradient, its part along the axes that are not batch
+    axes taken locally; a ``psum_scatter`` over the batch axes a dimension
+    is split over; a ``psum`` over the batch axes left (replicated leaves:
+    an ``all-reduce`` alone).  Collectives over groups of one are not
+    run."""
+    mesh = plan.mesh
+    out = []
+    for li, (names, sh) in enumerate(named):
+        spec = sh.sharding.spec
+        expert = plan.ep and _is_expert(names)
+        padded = _padded_shape(mesh, sh)
+        xs, made = [], {}
+        for i in range(mesh.size):
+            c = plan.shard_of[i]
+            if expert:  # the model shard's own block: its expert dimension is local already
+                key = (c, i)
+            else:  # devices whose blocks differ only along batch axes share an input
+                key = (c,) + tuple(mesh.axis_index(a)[i] for a in spec.axes if a not in plan.batch_axes)
+            if key not in made:
+                if accs[c] is None:  # a data shard of padding alone
+                    shape = sh.shards[i].shape if expert else padded
+                    g = torch.zeros(shape, dtype=torch.float32, device=sh.shards[i].device)
+                elif expert:
+                    g = accs[c][li][plan.groups[c].index(i)]
+                else:
+                    g = accs[c][li]
+                    if tuple(g.shape) != padded:  # an uneven split: pad as the blocks are padded
+                        g = torch.nn.functional.pad(g, [p for d in reversed(range(g.ndim))
+                                                        for p in (0, padded[d] - g.shape[d])])
+                if not expert:
+                    for d in range(len(spec)):
+                        if any(a not in plan.batch_axes for a in spec.dim_axes(d)):
+                            g = _select_local(g, mesh, spec, d, plan.batch_axes, i)
+                made[key] = g
+            xs.append(made[key])
+        used = ()
+        for d in range(len(spec)):
+            inb = tuple(a for a in spec.dim_axes(d) if a in plan.batch_axes)
+            if expert and any(a not in plan.batch_axes for a in spec.dim_axes(d)):
+                inb = ()  # the expert blocks: this dimension is the model shard's own
+            if inb:
+                used += inb
+                if mesh.axis_size(inb) > 1:
+                    xs = mesh.psum_scatter(xs, inb, dim=d)
+                else:
+                    xs = [_select_local(x, mesh, P(*([None] * d + [inb])), d, (), i) for i, x in enumerate(xs)]
+        rest = tuple(a for a in plan.batch_axes if a not in used)
+        if rest and mesh.axis_size(rest) > 1:
+            xs = mesh.psum(xs, rest)
+        out.append(xs)
+    return out
+
+
+def sharded_train_step(cfg: ModelConfig, opt_cfg, n_micro: int, ep_axis, dp_spec, state, batch):
+    """One training step over the mesh ``state`` is placed on.
+
+    Schedule: every split param leaf is gathered once (``all-gather`` a
+    split dimension; ``ACT_CTX["cast_params"]`` casts float32 stage weights
+    to the compute dtype before); for each microbatch (the reference's
+    ``[n_micro, mb, S]`` reshape) each data shard runs its ``mb / D`` rows
+    on its leader device, forward and backward, its gradients summed into
+    float32 accumulators of its own (the expert-parallel path: each model
+    shard's expert blocks on its own device, one ``psum`` over ``model`` a
+    MoE layer); the microbatch's valid-label counts come from one ``psum``
+    over the batch axes.  An MoE architecture over several data shards
+    reads across them: on the local path a gradient-free first pass over
+    the shards (``moe.ShardStats``) gives each shard the dispatch order and
+    aux statistics of the whole microbatch, handed from one shard's run to
+    the next (an artifact of running the shards in turn: no collective of
+    the reference's program, none counted); on the expert-parallel path
+    each shard's one pass records its loads (``moe.EPLoads``), summed after
+    the microbatch by one ``psum`` a data axis a MoE layer, whose aux
+    value the step adds to the loss.  After the microbatches each leaf's
+    gradient is reduced to its spec (:func:`_reduce_grads`), the global
+    norm is one ``psum`` over the whole mesh, the losses one ``psum`` over
+    the batch axes, and AdamW steps each block once a device.  Collectives
+    over groups of one are not run; the expert combine's ``psum`` counts
+    each time it runs, a checkpointed layer's recompute included.
+    ``launch.dryrun.step_collectives`` is this schedule as a formula."""
+    params_sh, opt_sh = state["params"], state["opt"]
+    named = _named_leaves(params_sh)
+    mesh = named[0][1].sharding.mesh
+    plan = _Plan(mesh, dp_spec, ep_axis)
+    D = plan.n_data
+    gathered = _gather_params(plan, cfg, named, TF.ACT_CTX["cast_params"])
+    trees = [_shard_params(plan, params_sh, named, gathered, c) for c in range(D)]
+
+    def whole(x):
+        return None if x is None else (x.gather() if isinstance(x, Sharded) else x)
+
+    tokens, labels, fe = whole(batch["tokens"]), whole(batch["labels"]), whole(batch.get("frontend"))
+    mb = tokens.shape[0] // n_micro
+    lo, hi = shard_rows(mb, D)
+    live = [c for c in range(D) if hi[c] > lo[c]]  # the others hold GSPMD's padding: no rows
+    hidden = tokens.shape[1] + (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+    two_pass = cfg.moe is not None and len(live) > 1 and not plan.ep
+    ep_loads = cfg.moe is not None and plan.ep and D > 1
+    accs: List[Any] = [None] * D
+    parts = [[] for _ in range(D)]  # each data shard's (loss, nll) a microbatch
+
+    def rows(x, i, c):
+        return None if x is None else x[i * mb + lo[c]:i * mb + hi[c]].to(plan.device(c), non_blocking=True)
+
+    def run(c, i, counts, grad: bool):
+        if plan.ep:
+            MOE.EP_CONTEXT["group"] = plan.groups[c]
+        norm = tuple(counts[plan.leaders[c]].clamp(min=1).unbind())
+        args = (cfg, rows(tokens, i, c), rows(labels, i, c), rows(fe, i, c), ep_axis)
+        if not grad:
+            with torch.no_grad():
+                return TF.train_loss(trees[c], *args, norm=norm)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(trees[c])]
+        total, metrics = TF.train_loss(tree_unflatten(trees[c], leaves), *args, norm=norm)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        return (total.detach(), metrics["nll"].detach(),
+                [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)])
+
+    try:
+        for i in range(n_micro):
+            counts = []
+            for dev_i in range(mesh.size):
+                lab = rows(labels, i, plan.shard_of[dev_i]).to(mesh.device_list[dev_i])
+                counts.append(torch.stack([(lab != -100).sum(), (lab[:, 2:] != -100).sum()]).to(torch.int32))
+            if mesh.axis_size(plan.batch_axes) > 1:
+                counts = mesh.psum(counts, plan.batch_axes)
+            stats = MOE.ShardStats(len(live), mb * hidden) if two_pass else MOE.EPLoads() if ep_loads else None
+            MOE.SHARD_CONTEXT["stats"] = stats
+            if two_pass:
+                for k, c in enumerate(live):
+                    stats.shard = k
+                    run(c, i, counts, grad=False)
+                stats.recording = False
+            for c in range(D):
+                if c not in live:
+                    parts[c].append(torch.zeros((2,), dtype=torch.float32, device=plan.device(c)))
+                    continue
+                if stats is not None:
+                    stats.shard = live.index(c) if two_pass else c
+                total, nll, g = run(c, i, counts, grad=True)
+                g = [[x.to(torch.float32) for x in b] if isinstance(b, list) else b.to(torch.float32)
+                     for b in _regroup(plan, named, g)]
+                accs[c] = g if accs[c] is None else [
+                    [a + x for a, x in zip(aa, gg)] if isinstance(aa, list) else aa + gg for aa, gg in zip(accs[c], g)
+                ]
+                parts[c].append(torch.stack([total, nll]))
+                del g
+            if ep_loads:  # the aux proxy's value, from the loads summed over the data axes
+                aux = stats.reduce(mesh, plan.groups, plan.batch_axes, cfg.moe.n_experts, plan.device(live[0]))
+                first = parts[live[0]]
+                first[-1] = first[-1] + torch.stack([TF.MOE_AUX_WEIGHT * aux, torch.zeros_like(aux)])
+    finally:
+        MOE.SHARD_CONTEXT["stats"] = None
+        MOE.EP_CONTEXT["group"] = None
+    del trees, gathered
+
+    # the losses: one psum over the batch axes of each data shard's part
+    lm = [torch.stack(parts[plan.shard_of[i]]).to(mesh.device_list[i]) for i in range(mesh.size)]
+    if mesh.axis_size(plan.batch_axes) > 1:
+        lm = mesh.psum(lm, plan.batch_axes)
+    loss, nll = lm[0].mean(0).unbind()
+
+    grads = _reduce_grads(plan, named, accs)
+    del accs
+    grads = [[g / n_micro for g in xs] for xs in grads]
+    # the global norm: each block counted once, one psum over the mesh
+    sq = [torch.zeros((), dtype=torch.float32, device=dev) for dev in mesh.device_list]
+    for (names, sh), xs in zip(named, grads):
+        chunks, _ = mesh.chunk_of(sh.sharding.spec)
+        first = {}
+        for i, ch in enumerate(chunks):
+            first.setdefault(ch, i)
+        for ch, i in first.items():
+            sq[i] = sq[i] + torch.sum(xs[i].to(torch.float32) ** 2)
+    if mesh.size > 1:
+        sq = mesh.psum(sq, mesh.axis_names)
+    new_state = _adamw_blocks(plan, params_sh, named, grads, opt_sh, sq, opt_cfg)
+    step = opt_sh["step"].shards[0] + 1
+    return new_state, {"loss": loss, "nll": nll, "grad_norm": torch.sqrt(sq[0]),
+                       "lr": adamw.lr_schedule(opt_cfg, step)}
+
+
+def shard_rows(rows: int, n: int) -> Tuple[List[int], List[int]]:
+    """Each of ``n`` data shards' rows ``[lo, hi)`` of a microbatch of
+    ``rows``: ``ceil(rows / n)`` a shard, as GSPMD splits (the last shards
+    may hold padding alone)."""
+    s = -(-rows // n)
+    return [min(c * s, rows) for c in range(n)], [min((c + 1) * s, rows) for c in range(n)]
+
+
+def _regroup(plan: _Plan, named, flat):
+    """A data shard's gradients (flat, as :func:`tree_leaves` of its param
+    tree gives them) one entry a param leaf: a tensor, or the
+    expert-parallel path's list of blocks."""
+    out, k = [], 0
+    for names, _ in named:
+        if plan.ep and _is_expert(names):
+            n = len(plan.groups[0])
+            out.append(flat[k:k + n])
+            k += n
+        else:
+            out.append(flat[k])
+            k += 1
+    return out
+
+
+def _adamw_blocks(plan: _Plan, params_sh, named, grads, opt_sh, sq, opt_cfg):
+    """AdamW on each device's blocks (a block held twice on one device is
+    stepped once and shared), clipped by the global norm."""
+    mesh = plan.mesh
+    m_named, v_named = _named_leaves(opt_sh["m"]), _named_leaves(opt_sh["v"])
+    step_sh = opt_sh["step"]
+    new_p, new_m, new_v = [], [], []
+    consts = {}
+    for i, dev in enumerate(mesh.device_list):
+        if dev not in consts:
+            norm = torch.sqrt(sq[i])
+            scale = torch.clamp(opt_cfg.grad_clip / (norm + 1e-9), max=1.0)
+            step = step_sh.shards[i] + 1
+            b1c = 1 - opt_cfg.b1 ** step.to(torch.float32)
+            b2c = 1 - opt_cfg.b2 ** step.to(torch.float32)
+            consts[dev] = (scale, adamw.lr_schedule(opt_cfg, step), b1c, b2c, step)
+    for (names, sh), xs, (_, msh), (_, vsh) in zip(named, grads, m_named, v_named):
+        chunks, _ = mesh.chunk_of(sh.sharding.spec)
+        done = {}
+        ps, ms, vs = [], [], []
+        for i, dev in enumerate(mesh.device_list):
+            key = (dev, chunks[i])
+            if key not in done:
+                scale, lr, b1c, b2c, _ = consts[dev]
+                g = xs[i].to(torch.float32) * scale
+                done[key] = adamw.leaf_update(sh.shards[i], g, msh.shards[i], vsh.shards[i], lr, b1c, b2c, opt_cfg)
+            p2, m2, v2 = done[key]
+            ps.append(p2)
+            ms.append(m2)
+            vs.append(v2)
+        new_p.append(Sharded(sh.sharding, tuple(ps), sh.shape))
+        new_m.append(Sharded(msh.sharding, tuple(ms), msh.shape))
+        new_v.append(Sharded(vsh.sharding, tuple(vs), vsh.shape))
+    steps = tuple(consts[dev][4] for dev in mesh.device_list)
+    return {
+        "params": tree_unflatten(params_sh, new_p),
+        "opt": {"m": tree_unflatten(opt_sh["m"], new_m), "v": tree_unflatten(opt_sh["v"], new_v),
+                "step": Sharded(step_sh.sharding, steps, step_sh.shape)},
+    }
 
 
 def make_prefill_step(cfg: ModelConfig, ep_axis: Optional[str] = "model"):

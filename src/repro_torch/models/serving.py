@@ -71,8 +71,8 @@ def _layer_cache(cfg: ModelConfig, g: GroupSpec, batch: int, s_cap: int, dtype, 
 
 def init_cache(cfg: ModelConfig, batch: int, s_cap: int, dtype=torch.bfloat16, device=None) -> Cache:
     """The full decode cache (zeros, invalid positions), on ``device``
-    (``cuda`` unless given)."""
-    dev = resolve_device(device)
+    (``cuda`` unless given; ``"meta"`` gives the shapes alone)."""
+    dev = torch.device("meta") if device == "meta" else resolve_device(device)
     stages = []
     for st in build_plan(cfg):
         if st.reps == 1:

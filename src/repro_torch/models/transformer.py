@@ -204,6 +204,20 @@ def layer_of(stacked: Params, r: int) -> Params:
     return tree_map(lambda w: w[r], stacked)
 
 
+# Launch context (the reference's trace-time ``ACT_CTX``), set by the
+# sharded launchers: ``cast_params`` casts float32 stage weights to the
+# compute dtype before a ZeRO-3 gather, so the gather moves bfloat16
+# (numerically identical for the matmul paths, which cast at use anyway).
+# The sharded step's gather (``launch.steps._gather_params``) is the one
+# place that reads it.  The reference's activation pin has no counterpart:
+# each data shard's slice of the batch runs on that shard's own device.
+ACT_CTX = {"cast_params": False}
+
+# the MoE aux term's weight in ``train_loss`` (a sharded step adds the
+# expert-parallel aux term's value with it after its data shards ran)
+MOE_AUX_WEIGHT = 0.01
+
+
 # ---------------------------------------------------------------------------
 # one decoder layer (full-sequence path)
 # ---------------------------------------------------------------------------
@@ -247,13 +261,14 @@ def _run_stages_train(params, cfg, x, positions, ep_axis, remat: bool = True):
     plan = build_plan(cfg)
     prefix = cfg.frontend_tokens if cfg.frontend == "vision" else 0
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for st, sp in zip(plan, params["stages"]):
+    for si, (st, sp) in enumerate(zip(plan, params["stages"])):
         for r in range(st.reps):
-            for g, p_layer in zip(st.specs, sp):
+            for gi, (g, p_layer) in enumerate(zip(st.specs, sp)):
                 if st.reps > 1:
                     p_layer = layer_of(p_layer, r)  # views: gradients reach the stacked leaf
 
-                def blk(y, p_layer=p_layer, g=g):
+                def blk(y, p_layer=p_layer, g=g, key=(si, r, gi)):
+                    MOE.SHARD_CONTEXT["layer"] = key  # a sharded step's MoE statistics, by layer
                     return _apply_layer_train(p_layer, cfg, g, y, positions, ep_axis, prefix)
 
                 x, a = L.remat_call(blk, x) if remat else blk(x)
@@ -395,8 +410,13 @@ def chunked_lm_loss(
     labels: torch.Tensor,  # [B, S]
     chunk: int = 1024,
     z_loss: float = 1e-4,
+    norm: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross-entropy without materialising [B, S, V] logits.
+
+    ``norm`` (a sharded step's) divides the sums in place of this call's
+    own count of valid labels: the whole microbatch's count, so that the
+    data shards' losses sum to the microbatch's.
 
     The LM head and the softmax run a sequence chunk at a time, each chunk
     under ``layers.remat_call`` (the reference's checkpointed scan body),
@@ -425,7 +445,7 @@ def chunked_lm_loss(
     for i in range(S // c):
         a, b, k = L.remat_call(body, hidden[:, i * c : (i + 1) * c], labels[:, i * c : (i + 1) * c])
         loss_sum, nll_sum, cnt = loss_sum + a, nll_sum + b, cnt + k
-    nt = torch.clamp(cnt, min=1)
+    nt = torch.clamp(cnt, min=1) if norm is None else norm
     return loss_sum / nt, {"nll": nll_sum / nt, "tokens": nt}
 
 
@@ -436,24 +456,30 @@ def train_loss(
     labels: torch.Tensor,
     frontend_embeds: Optional[torch.Tensor] = None,
     ep_axis: Optional[str] = "model",
-    moe_aux_weight: float = 0.01,
+    moe_aux_weight: float = MOE_AUX_WEIGHT,
     mtp_weight: float = 0.3,
     loss_chunk: int = 1024,
+    norm: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss and its metrics.  ``norm`` (a sharded step's:
+    the whole microbatch's counts of valid labels and of valid MTP labels)
+    divides the sums in place of this call's own counts, so that the data
+    shards' losses sum to the microbatch's."""
     # last_only=True: the [B, S, V] logits are never built; the loss
     # recomputes chunk logits inside chunked_lm_loss
+    n_tok, n_mtp = (None, None) if norm is None else norm
     _, hidden, moe_aux = forward(params, cfg, tokens, frontend_embeds, ep_axis, last_only=True)
     hidden_text = hidden[:, cfg.frontend_tokens :] if cfg.frontend == "vision" else hidden  # text only
-    loss, metrics = chunked_lm_loss(params, cfg, hidden_text, labels, loss_chunk)
+    loss, metrics = chunked_lm_loss(params, cfg, hidden_text, labels, loss_chunk, norm=n_tok)
     total = loss + moe_aux_weight * moe_aux
     if cfg.mtp_depth and "mtp" in params:
-        total = total + mtp_weight * _mtp_loss(params, cfg, hidden, tokens, labels)
+        total = total + mtp_weight * _mtp_loss(params, cfg, hidden, tokens, labels, norm=n_mtp)
     metrics["moe_aux"] = moe_aux
     metrics["loss"] = total
     return total, metrics
 
 
-def _mtp_loss(params, cfg, hidden, tokens, labels):
+def _mtp_loss(params, cfg, hidden, tokens, labels, norm=None):
     """DeepSeek-V3 multi-token prediction (depth 1): combine h_t with
     emb(token_{t+1}) through one extra block, predict token_{t+2}."""
     mp = params["mtp"]
@@ -466,7 +492,7 @@ def _mtp_loss(params, cfg, hidden, tokens, labels):
     x, _ = _apply_layer_train(mp["block"], cfg, GroupSpec("attn", True, False), x, positions, None)
     x = L.apply_norm(mp["final_norm"], x)
     mtp_labels = torch.cat([labels[:, 2:], torch.full((B, 1), -100, dtype=labels.dtype, device=labels.device)], 1)
-    loss, _ = chunked_lm_loss(params, cfg, x, mtp_labels)
+    loss, _ = chunked_lm_loss(params, cfg, x, mtp_labels, norm=norm)
     return loss
 
 

@@ -95,6 +95,18 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g.to(torch.float32) * scale, grads), norm
 
 
+def leaf_update(p, g, m, v, lr, b1c, b2c, cfg: AdamWConfig):
+    """One leaf's AdamW step (``g`` clipped, float32): the new parameter
+    and moments.  A block of a sharded leaf takes the same step."""
+    m2 = cfg.b1 * m + (1 - cfg.b1) * g
+    v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
+    mhat = m2 / b1c
+    vhat = v2 / b2c
+    p32 = p.to(torch.float32)
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p32
+    return (p32 - lr * delta).to(p.dtype), m2, v2
+
+
 def update(grads, opt_state, params, cfg: AdamWConfig) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns ``(new_params, new_opt_state, metrics)``."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
@@ -103,19 +115,10 @@ def update(grads, opt_state, params, cfg: AdamWConfig) -> Tuple[Any, Dict[str, A
     b1c = 1 - cfg.b1 ** step.to(torch.float32)
     b2c = 1 - cfg.b2 ** step.to(torch.float32)
 
-    def upd(p, g, m, v):
-        m2 = cfg.b1 * m + (1 - cfg.b1) * g
-        v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
-        mhat = m2 / b1c
-        vhat = v2 / b2c
-        p32 = p.to(torch.float32)
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p32
-        return (p32 - lr * delta).to(p.dtype), m2, v2
-
     # flatten/unflatten, as the reference does
     leaves_p = tree_leaves(params)
     res = [
-        upd(p, g, m, v)
+        leaf_update(p, g, m, v, lr, b1c, b2c, cfg)
         for p, g, m, v in zip(
             leaves_p, tree_leaves(grads), tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"])
         )

@@ -156,8 +156,7 @@ def test_device_put_trees_and_specs():
     assert placed["b"][1].shards[2].tolist() == [2]
     with pytest.raises(ValueError, match="does not split"):
         tmesh.device_put(torch.ones(6), NamedSharding(mesh, P("data")))
-    with pytest.raises(NotImplementedError, match="leading dimension"):
-        P(None, "data").axes
+    assert P(None, "data").axes == ("data",) and P(None, "data").dim_axes(0) == ()
     per_device = tmesh.local_shards(placed, mesh.size)
     assert len(per_device) == 4 and per_device[1]["b"][1].tolist() == [1]
 

@@ -24,6 +24,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import mamba as TM
 from repro_torch.models import mla as TMLA
 from repro_torch.models import moe as TMOE
+from repro_torch.core.mesh import Mesh
 from repro_torch.models.convert import params_from_numpy
 
 ATOL = 1e-5
@@ -249,14 +250,22 @@ def test_apply_moe(arch, capacity, seq):
 
 
 def test_expert_parallel_context_raises():
+    """With ``EP_CONTEXT``'s mesh set, ``apply_moe`` takes the expert-parallel
+    path: at one data shard its capacity is the local path's, so it agrees
+    with the reference's local path, its load and dropped count exactly."""
     jc, tc = cfgs("phi3_5_moe")
-    p = carry(JMOE.init_moe(jax.random.PRNGKey(8), jc))
-    TMOE.EP_CONTEXT["mesh"] = object()
+    jp = JMOE.init_moe(jax.random.PRNGKey(8), jc)
+    p = carry(jp)
+    x = normal(9, (2, 8, 64))
+    want, waux = JMOE.apply_moe(jp, jc, x, ep_axis=None)
+    TMOE.EP_CONTEXT.update(mesh=Mesh([torch.device("cpu")] * 2, ("model",)), dp=None)
     try:
-        with pytest.raises(NotImplementedError, match="sharding"):
-            TMOE.apply_moe(p, tc, torch.zeros((1, 2, 64)), ep_axis="model")
+        got, gaux = TMOE.apply_moe(p, tc, t(x), ep_axis="model")
     finally:
-        TMOE.EP_CONTEXT["mesh"] = None
+        TMOE.EP_CONTEXT.update(mesh=None, dp=None)
+    close(got, want, atol=1e-5 * float(np.abs(np.asarray(want)).max()))  # two shards' sums: another order
+    np.testing.assert_array_equal(gaux["expert_load"].numpy(), np.asarray(waux["expert_load"]))
+    assert int(gaux["moe_dropped"]) == int(waux["moe_dropped"])
     TMOE.apply_moe(p, tc, torch.zeros((1, 2, 64)), ep_axis="model")  # no mesh: the local path
 
 

@@ -25,6 +25,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.tokens import TokenStream
 from repro_torch.examples import train_lm
 from repro_torch.launch import steps as TST
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import serving as TSV
 from repro_torch.models import transformer as TTF
 from repro_torch.models.convert import params_from_numpy
@@ -81,9 +82,24 @@ def test_one_microbatch_is_the_mean_of_two():
 
 
 def test_dp_spec_belongs_to_the_sharding_slice():
-    _, tc = T.configs("qwen2_0_5b")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        TST.make_train_step(tc, dp_spec=("data",))
+    """With ``dp_spec`` the step runs over the mesh its state is placed on:
+    two data shards of the CPU give the unsharded step's loss and moments
+    (``test_torch_shard_step.py`` holds every strategy to the reference);
+    compressing a sharded step's gradients is not ported and raises."""
+
+    cfg, tc = T.configs("qwen2_0_5b")
+    state = TST.init_train_state(torch.Generator().manual_seed(0), tc, "cpu")
+    tokens, labels, _ = T.batch(cfg, b=4)
+    b = {"tokens": T.tensor(tokens), "labels": T.tensor(labels)}
+    want, wm = TST.make_train_step(tc, n_micro=2, ep_axis=None)(state, b)
+    mesh = make_local_mesh(data=2, device="cpu")
+    placed = TST.place_train_state(state, tc, mesh, "fsdp_flat")
+    new, m = TST.make_train_step(tc, n_micro=2, ep_axis=None, dp_spec=("data", "model"))(placed, b)
+    np.testing.assert_allclose(float(m["loss"]), float(wm["loss"]), rtol=1e-5)
+    for a, c in zip(tree_leaves(TST.gather_train_state(new, "cpu")["opt"]["m"]), tree_leaves(want["opt"]["m"])):
+        assert T.rel_err(a.numpy(), c.numpy()) <= T.REL
+    with pytest.raises(NotImplementedError, match="compression"):
+        TST.make_train_step(tc, dp_spec=("data",), comp_cfg=TST.compression.CompressionConfig(enabled=True))
 
 
 def test_restart_resumes_training_bitexact(tmp_path):
