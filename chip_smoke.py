@@ -46,7 +46,8 @@ Phases, each of which asserts (any failure exits non-zero):
    (Zipf 1.3, as ``train_lm`` draws them) in two microbatches, timed (ms a step, tokens/s, the model-FLOP share of the 989 TFLOP/s
    dense bfloat16 peak), the loss falling and every gradient finite; top-k
    compression's bookkeeping exact; a checkpoint after step 2 restored and
-   run on, against the uninterrupted run; the embedding gather's backward
+   run on, against the uninterrupted run (whisper-tiny at its published
+   config: a 0.44 GB checkpoint); the embedding gather's backward
    (``scatter_add``, once a microbatch: the ``lm_train`` path) through the
    kernel and inside ``plain_versions()``, the table gradient
    bit-identical; the ``train_lm`` loop at mamba2-1.3b's published config
@@ -73,6 +74,17 @@ Phases, each of which asserts (any failure exits non-zero):
    under each strategy, and ``dryrun_assoc`` at 512 shards (group
    10,000, cut from 100,000); a ``[shard-metrics]`` line holds the
    numbers, the ``kernels`` line its launches as ``shard_*`` paths;
+   then sharded serving (``phase_shard_serve``, leg (d): heads split over
+   "model", ``place_serve_state``, ``make_serve_step`` and
+   ``make_prefill_step`` over the mesh): h2o-danube3-4b at its published
+   width and depth on the 2 x 2 mesh, ``decode_32k``-shaped decode at
+   batch 16 (the batch over "data"), ``long_500k`` at batch 1 (the slot
+   axis over "data"), 16 greedy steps each, and a 2 x 4,096 prefill,
+   against the unsharded steps (bfloat16 within 2^-5, float32 at 4 layers
+   within 1e-4, ``kpos`` and ``pos`` exact), every step's collectives
+   equal to ``dryrun.serve_collectives``, and the dry run's 30 serve cells
+   at 16 x 16; a ``[serve-shard-metrics]`` line holds the numbers, the
+   ``kernels`` line its launches (none) as ``shard_serve``;
 7. make the R-MAT stream once (200 groups of 100,000 scale-20 edges,
    ``configs/d4m_stream.CONFIG``) and count it with numpy;
 8. the ``cuda`` engine at full width: K=8 hash-routed instances of the
@@ -2922,6 +2934,9 @@ TRAIN_LM = dict(steps=4, batch=4, seq=1024)
 # depth cut: at 48 layers the loop's one checkpoint is 17.4 GB (params, m, v), and the loop
 # took 42.7 s of a 104 s phase; the sparse embedding path depends on d_model and the vocab
 TRAIN_LM_CUT = {"n_layers": 8}
+RESTART_ARCH = "whisper_tiny"  # the restart leg's model, at its published config
+RESTART_BATCH, RESTART_SEQ = 4, 448  # whisper's decoder context
+RESTART_MAX_GB = 1.5  # the restart checkpoint (params, m, v) at most
 TRAIN_REL = 1e-4  # the card's loss and gradients against the CPU port's, reduced archs, float32
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bfloat16, NVIDIA data sheet (no sparsity)
 
@@ -2938,8 +2953,10 @@ def phase_train(torch, np):
         Zipf(1.3) ids (``train_lm``'s traffic), timed; the loss
         falls and every gradient is finite; one step with top-k
         compression (``sparse + residual == g + old residual`` exactly);
-        a checkpoint after step 2 restored into fresh state and run to step
-        4 against the uninterrupted run;
+        then the restart: whisper-tiny at its published config (its
+        checkpoint 0.44 GB; qwen2-0.5b's is 5.93 GB, and its tied table
+        alone 1.63 GB) trained 4 steps, a checkpoint after step 2 restored
+        into fresh state and run to step 4 against the uninterrupted run;
     (b) one microbatch's gradient through the kernel and inside
         ``plain_versions()``, the table's bit-identical; ``scatter_add``
         alone at that shape, its live rows the microbatch's distinct ids;
@@ -3001,7 +3018,7 @@ def phase_train(torch, np):
     step = ST.make_train_step(cfg, opt_cfg, n_micro=TRAIN_MICRO, ep_axis=None)
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    losses, step_ms, gnorms, mid = [], [], [], None
+    losses, step_ms, gnorms = [], [], []
     s = state
     for t in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -3011,8 +3028,6 @@ def phase_train(torch, np):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
-        if t == 1:
-            mid = s
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(launches["scatter_add"] == TRAIN_STEPS * TRAIN_MICRO,
@@ -3033,9 +3048,28 @@ def phase_train(torch, np):
         f"launches {launches}")
 
     leg_done("a_steps")
-    # restart: checkpoint after step 2, restore into fresh state, steps 3-4
+    # restart: checkpoint after step 2, restore into fresh state, steps 3-4,
+    # on whisper-tiny at its published config (qwen2-0.5b's tied table with
+    # its two moments is 1.63 GB alone: no depth of it keeps the checkpoint
+    # within RESTART_MAX_GB)
+    rcfg = get_config(RESTART_ARCH)
+    rbytes = tree_bytes(TF.init_params(None, rcfg, device="meta"))
+    check(3 * rbytes <= RESTART_MAX_GB * 1e9, ("the restart checkpoint's size", 3 * rbytes))
+    rgen = torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED)
+    rstate = ST.init_train_state(rgen, rcfg, DEVICE)
+    rhost = TokenStream(rcfg.vocab, RESTART_BATCH, RESTART_SEQ, seed=TRAIN_SEED).batch_at(0)
+    rbatch = {k: torch.from_numpy(x).to(DEVICE) for k, x in rhost.items()}
+    rbatch["frontend"] = torch.randn((RESTART_BATCH, rcfg.encoder_tokens, rcfg.d_model), generator=rgen,
+                                     device=DEVICE) * 0.02
+    rstep = ST.make_train_step(rcfg, opt_cfg, n_micro=TRAIN_MICRO, ep_axis=None)
+    rs, mid = rstate, None
+    for t in range(TRAIN_STEPS):
+        rs, _ = rstep(rs, rbatch)
+        if t == 1:
+            mid = rs
     with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckpt_dir:
         mgr = CheckpointManager(ckpt_dir)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         mgr.save(2, mid, extra={"cursor": 2})
         save_s = time.perf_counter() - t0
@@ -3047,16 +3081,20 @@ def phase_train(torch, np):
     del restored
     check(extra["cursor"] == 2, ("checkpoint cursor", extra))
     for _ in range(extra["cursor"], TRAIN_STEPS):
-        r, _ = step(r, batch)
-    pairs = list(zip(tree_leaves(r), tree_leaves(s)))
+        r, _ = rstep(r, rbatch)
+    pairs = list(zip(tree_leaves(r), tree_leaves(rs)))
     restart_bits = all(torch.equal(a, b) for a, b in pairs)
     check(all(torch.allclose(a, b, rtol=1e-6, atol=0) for a, b in pairs), "restart within rtol 1e-6")
-    del r, pairs
-    out["restart"] = {"bit_identical": restart_bits, "save_s": save_s, "restore_s": restore_s,
-                      "checkpoint_gb": 3 * nbytes / 1e9}
-    log(f"[train] (a) restart after step 2: steps 3-4 from the restored state "
-        f"{'bit-identical to' if restart_bits else 'within rtol 1e-6 of'} the uninterrupted run; "
-        f"save {save_s:.1f} s, restore {restore_s:.1f} s ({3 * nbytes / 1e9:.2f} GB)")
+    del r, rs, rstate, pairs
+    out["restart"] = {"arch": rcfg.name, "bit_identical": restart_bits, "save_s": save_s, "restore_s": restore_s,
+                      "checkpoint_gb": 3 * rbytes / 1e9,
+                      "reduced": {"arch": [TRAIN_ARCH, RESTART_ARCH], "checkpoint_gb": [3 * nbytes / 1e9,
+                                                                                        3 * rbytes / 1e9]}}
+    log(f"[train] (a) restart on {rcfg.name} ({rcfg.n_layers} + {rcfg.encoder_layers} encoder layers, d_model "
+        f"{rcfg.d_model}, batch {RESTART_BATCH} x {RESTART_SEQ} and {rcfg.encoder_tokens} frames) after step 2: "
+        f"steps 3-4 from the restored state {'bit-identical to' if restart_bits else 'within rtol 1e-6 of'} the "
+        f"uninterrupted run; save {save_s:.1f} s, restore {restore_s:.1f} s ({3 * rbytes / 1e9:.2f} GB; reduced "
+        f"from {TRAIN_ARCH}'s {3 * nbytes / 1e9:.2f} GB)")
 
     leg_done("a_restart")
     # ---- (b) one microbatch's gradient: the kernel against plain_versions()
@@ -3486,6 +3524,240 @@ def phase_shard(torch, np):
     return out
 
 
+SERVE_ARCH = "h2o_danube3_4b"  # published width and depth: 24 layers, d_model 3840, 32/8 heads, SWA 4096
+SERVE_MESH = (2, 2)  # (data, model) of cuda:0, "tp"
+# (cell, batch, cache capacity, first position): decode_32k with its batch
+# cut from 128 to 16, and long_500k (batch 1: the slot axis over "data")
+SERVE_DECODE = (("decode_32k", 16, 32768, 32640), ("long_500k", 1, 524288, 524160))
+SERVE_STEPS = 16
+SERVE_PREFILL = (2, 4096)  # prefill_32k cut from 32 x 32,768
+SERVE_BF16_REL = 2.0 ** -5  # bfloat16 logits and cache slots, of max |value|
+SERVE_FP32_REL = 1e-4
+SERVE_FP32_CUT = {"n_layers": 4, "dtype": "float32"}  # the same legs at 4 of 24 layers in float32
+SERVE_FP32_STEPS = 4
+SERVE_SEED = 0
+
+
+def phase_shard_serve(torch, np):
+    """Sharded serving on the card (``launch.steps.place_serve_state``,
+    ``make_serve_step``/``make_prefill_step`` over a mesh: heads split
+    over "model", ``serving.sharded_decode_step``/``sharded_prefill``).
+
+    h2o-danube3-4b at its published width and depth (float32 master
+    weights made on the card from a seed, bfloat16 compute) on a 2 x 2
+    ``(data, model)`` mesh of ``cuda:0``, "tp", each leg's bytes printed
+    from ``device="meta"`` first:
+
+    (d1) ``decode_32k``-shaped decode at batch 16 (cut from 128): a
+         4,096-slot ring a layer filled from the seed (random bfloat16 K/V,
+         ``kpos`` the positions 28,544-32,639), 16 greedy steps from
+         position 32,640, the batch over "data" and the KV heads over
+         "model", against the unsharded ``make_serve_step`` on an equal
+         copy of the cache (both fed the unsharded step's greedy tokens);
+    (d2) ``long_500k`` decode, batch 1: the slot axis over "data" (the
+         sequence-parallel branch), positions 520,064-524,159 in the ring,
+         16 steps from 524,160, compared the same way;
+    (d3) ``make_prefill_step`` on 2 x 4,096 ``TokenStream`` tokens (cut
+         from 32 x 32,768), the last position's logits against unsharded;
+    then the three legs again in float32 at 4 of the 24 layers;
+    (d4) the dry run's serve cells: ``plan_cell`` for the ten archs x
+         ``prefill_32k``, ``decode_32k``, ``long_500k`` at 16 x 16 with the
+         sharded steps' collectives.
+
+    Checks: logits within 2^-5 (bfloat16) or 1e-4 (float32) of max
+    |logit|; each greedy token equal wherever the unsharded step's top-two
+    margin exceeds that tolerance; the written cache slots within it,
+    ``kpos`` and ``pos`` exact; each step's collectives equal
+    ``dryrun.serve_collectives``; every logits block on the card."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import shapes as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.models import serving as SV
+    from repro_torch.models import transformer as TF
+
+    t_phase = time.perf_counter()
+    out = {"legs_s": {}, "legs": {}}
+
+    def leg_done(name, t0=[t_phase]):
+        now = time.perf_counter()
+        out["legs_s"][name] = now - t0[0]
+        t0[0] = now
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def rel(a, b) -> float:
+        return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+
+    mesh = make_local_mesh(data=SERVE_MESH[0], model=SERVE_MESH[1], device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+
+    def ring_cache(c, batch, cap, pos0):
+        """A decode cache as a ring after ``pos0`` tokens: K/V from the
+        seed, ``kpos`` the positions each slot holds, ``pos`` = pos0."""
+        cache = SV.init_cache(c, batch, cap, TF.compute_dtype(c), DEVICE)
+        for names, leaf in ST._named_leaves(cache):
+            if names[-1] == "pos":
+                leaf.fill_(pos0)
+            elif names[-1] == "kpos":
+                t = torch.arange(leaf.shape[-1], device=DEVICE)
+                last = pos0 - 1 - (pos0 - 1 - t) % leaf.shape[-1]
+                leaf.copy_(torch.where(last >= 0, last, -1).to(torch.int32).expand_as(leaf))
+            else:
+                leaf.normal_(0.0, 0.5, generator=gen)
+        return cache
+
+    def decode_leg(c, params, cell, batch, cap, pos0, steps, tol, tag):
+        gen.manual_seed(SERVE_SEED)
+        want = ring_cache(c, batch, cap, pos0)
+        src = TF.tree_map(lambda x: x.clone(), want)  # an equal copy; placed by views, written in place
+        tok = torch.randint(0, c.vocab, (batch, 1), generator=gen, device=DEVICE, dtype=torch.int32)
+        s_ms, u_ms, errs, counted = [], [], [], None
+        n_tok = n_cmp = 0
+        with ST.strategy_context(mesh, "tp") as (plan, ep_axis):
+            pp, pc = ST.place_serve_state(params, src, c, mesh, plan)
+            placed = ST.placed_bytes(pc)
+            sstep, ustep = ST.make_serve_step(c, ep_axis), ST.make_serve_step(c, ep_axis)
+            for t in range(steps):
+                (w, want), ums = timed(ustep, params, want, tok)
+                mesh.reset_collectives()
+                (g, pc), sms = timed(sstep, pp, pc, tok)
+                if counted is None:
+                    counted = dict(mesh.collectives), dict(mesh.collective_bytes)
+                check(all(b.is_cuda for b in g.shards), (tag, "every logits block on the card"))
+                gl = g.gather()
+                errs.append(rel(gl, w))
+                wv, gv = w[:, -1, : c.vocab].float(), gl[:, -1, : c.vocab].float()
+                top2 = wv.topk(2, dim=-1).values
+                margin = (top2[:, 0] - top2[:, 1]) / wv.abs().max()
+                decided = margin > tol
+                nxt = wv.argmax(-1)
+                n_tok += int(decided.sum())
+                n_cmp += int((decided & (gv.argmax(-1) == nxt)).sum())
+                s_ms.append(sms)
+                u_ms.append(ums)
+                tok = nxt[:, None].to(torch.int32)
+        shape = SH.ShapeSpec(cell, "decode", cap, batch)
+        check(counted == DR.serve_collectives(c, mesh, "tp", shape),
+              (tag, "the mesh's collectives equal the dry run's formula", counted))
+        check(max(errs) <= tol, (tag, "sharded logits against unsharded", errs))
+        check(n_cmp == n_tok, (tag, "greedy tokens where the margin decides", n_cmp, n_tok))
+        # the written slots, kpos and pos
+        slot_err = 0.0
+        for (names, sh), (_, w) in zip(ST._named_leaves(pc), ST._named_leaves(want)):
+            got = sh.gather()
+            if names[-1] in ("kpos", "pos"):
+                check(torch.equal(got, w), (tag, names, "exact"))
+            else:
+                idx = torch.tensor([(pos0 + t) % w.shape[-3] for t in range(steps)], device=DEVICE)
+                slot_err = max(slot_err, rel(got.index_select(-3, idx), w.index_select(-3, idx)))
+            del got
+        check(slot_err <= tol, (tag, "written cache slots", slot_err))
+        res = {"cell": cell, "batch": batch, "cache_capacity": cap, "first_pos": pos0, "steps": steps,
+               "seq_shard": SV.SD.serve_layout(c, mesh, batch).seq_shard, "max_rel_err": max(errs),
+               "slot_rel_err": slot_err, "greedy_tokens_compared": n_tok, "sharded_ms": s_ms, "unsharded_ms": u_ms,
+               "sharded_ms_median": float(np.median(s_ms[1:])), "unsharded_ms_median": float(np.median(u_ms[1:])),
+               "collectives": counted[0], "collective_bytes": counted[1], "placed_cache": placed}
+        log(f"[serve-shard] {tag} {cell} batch {batch}: logits within {max(errs):.2e} of max, slots within "
+            f"{slot_err:.2e}, kpos and pos exact, {n_tok} greedy tokens decided and equal; a step "
+            f"{res['sharded_ms_median']:.1f} ms sharded against {res['unsharded_ms_median']:.1f} ms unsharded "
+            f"(median of steps 2-{steps}); collectives {counted[0]} ({counted[1]} bytes on device 0); the placed "
+            f"cache {placed['per_device'] / 1e9:.3f} GB a device, {placed['storages'] / 1e9:.3f} GB of storages")
+        del want, src, pc, pp
+        return res
+
+    def prefill_leg(c, params, tol, tag):
+        b, seq = SERVE_PREFILL
+        host = TokenStream(c.vocab, b, seq, seed=SERVE_SEED).batch_at(0)
+        batch = {"tokens": torch.from_numpy(host["tokens"]).to(DEVICE)}
+        with ST.strategy_context(mesh, "tp") as (plan, ep_axis):
+            pp, _ = ST.place_serve_state(params, None, c, mesh, plan)
+            step = ST.make_prefill_step(c, ep_axis)
+            w, ums = timed(step, params, batch)
+            mesh.reset_collectives()
+            g, sms = timed(step, pp, batch)
+            counted = dict(mesh.collectives), dict(mesh.collective_bytes)
+        check(all(x.is_cuda for x in g.shards), (tag, "every logits block on the card"))
+        err = rel(g.gather(), w)
+        check(err <= tol, (tag, "sharded prefill logits", err))
+        check(counted == DR.serve_collectives(c, mesh, "tp", SH.ShapeSpec("prefill_32k", "prefill", seq, b)),
+              (tag, "prefill collectives equal the formula", counted))
+        log(f"[serve-shard] {tag} prefill {b} x {seq}: last-position logits within {err:.2e} of max; "
+            f"{sms:.1f} ms sharded against {ums:.1f} ms unsharded; collectives {counted[0]} "
+            f"({counted[1]} bytes on device 0)")
+        return {"batch": b, "seq": seq, "rel_err": err, "sharded_ms": sms, "unsharded_ms": ums,
+                "collectives": counted[0], "collective_bytes": counted[1]}
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SERVE_ARCH)
+    fcfg = dataclasses.replace(cfg, **SERVE_FP32_CUT)
+    for c, tag in ((cfg, "bf16"), (fcfg, "float32 4 layers")):
+        pb = tree_bytes(TF.init_params(None, c, device="meta"))
+        cb = {cell: tree_bytes(SV.init_cache(c, b, cap, TF.compute_dtype(c), device="meta"))
+              for cell, b, cap, _ in SERVE_DECODE}
+        log(f"[serve-shard] {c.name} {tag}: {c.n_layers} layers, d_model {c.d_model}, {c.n_heads}/{c.n_kv_heads} "
+            f"heads, window {c.sliding_window}; float32 weights {pb / 1e9:.2f} GB; caches "
+            f"{ {k: round(v / 1e9, 3) for k, v in cb.items()} } GB (two copies a leg: sharded and unsharded); "
+            f"mesh {mesh.shape} of {mesh.device_list[0]}; reduced: decode_32k batch 128 -> 16, prefill_32k "
+            f"32 x 32768 -> {SERVE_PREFILL[0]} x {SERVE_PREFILL[1]}")
+    params = TF.init_params(torch.Generator(device=DEVICE).manual_seed(SERVE_SEED), cfg, DEVICE)
+    for cell, b, cap, pos0 in SERVE_DECODE:
+        out["legs"][cell] = decode_leg(cfg, params, cell, b, cap, pos0, SERVE_STEPS, SERVE_BF16_REL, "(d)")
+        free(torch)
+        leg_done(cell)
+    out["legs"]["prefill"] = prefill_leg(cfg, params, SERVE_BF16_REL, "(d3)")
+    del params
+    free(torch)
+    leg_done("prefill")
+    fparams = TF.init_params(torch.Generator(device=DEVICE).manual_seed(SERVE_SEED), fcfg, DEVICE)
+    for cell, b, cap, pos0 in SERVE_DECODE:
+        out["legs"][f"float32_{cell}"] = decode_leg(fcfg, fparams, cell, b, cap, pos0, SERVE_FP32_STEPS,
+                                                    SERVE_FP32_REL, "(d) float32")
+    out["legs"]["float32_prefill"] = prefill_leg(fcfg, fparams, SERVE_FP32_REL, "(d3) float32")
+    del fparams
+    free(torch)
+    leg_done("float32")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(out["peak_gb"] < 70, ("(d) peak device memory under 70 GB", out["peak_gb"]))
+
+    # (d4) the dry run's serve cells at the production mesh
+    pmesh = make_production_mesh(device=DEVICE)
+    out["dryrun"] = {}
+    for arch in ARCH_IDS:
+        for shape in ("prefill_32k", "decode_32k", "long_500k"):
+            cell = DR.plan_cell(arch, shape, pmesh, "tp")
+            if cell["status"] != "planned":
+                out["dryrun"][f"{arch}/{shape}"] = cell["status"]
+                continue
+            col = cell["collectives"]
+            check(col is not None and col["calls"]["all-reduce"] > 0, (arch, shape, "serve collectives"))
+            check(col["layout"]["seq_shard"] == (shape == "long_500k"), (arch, shape, col["layout"]))
+            out["dryrun"][f"{arch}/{shape}"] = {
+                "calls": {k: v for k, v in col["calls"].items() if v},
+                "bytes": {k: v for k, v in col["bytes"].items() if v}, "layout": col["layout"],
+                "t_collective_ms": cell["roofline"]["t_collective_s"] * 1e3,
+                "gb_per_device": cell["memory"]["total_bytes_per_device"] / 2**30}
+    log(f"[serve-shard] (d4) dry run serve cells at {pmesh.shape}, (all-gather, all-reduce) calls a step: "
+        + json.dumps({k: v if isinstance(v, str) else [v["calls"].get("all-gather", 0), v["calls"]["all-reduce"]]
+                      for k, v in out["dryrun"].items()}))
+    leg_done("dryrun")
+    out["launches"] = {"shard_serve": read_counts()}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[serve-shard] phase {out['wall_s']:.1f} s: {out['legs_s']}; peak {out['peak_gb']:.2f} GB; launches "
+        f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3521,6 +3793,8 @@ def main() -> int:
     train = phase_train(torch, np)
     free(torch)
     shard = phase_shard(torch, np)
+    free(torch)
+    serve_shard = phase_shard_serve(torch, np)
     free(torch)
     data = phase_data(torch, np)
     sess8, main_run = phase_main(torch, np, data)
@@ -3566,6 +3840,7 @@ def main() -> int:
              "fleet": fleet["launches"], **mesh["launches"], "lm_serve": lm["launches"],
              "lm_train": train["launches"], "train_lm": train["train_lm"]["launches"],
              **shard["launches"],
+             **serve_shard["launches"],
              **{f"bench_{sec}": c for sec, c in bench["launches"].items()}}
     err = max(ops_err, main_run["err"], read["err"], single["err"], algebra["err"], served["err"],
               types_err, mesh["err"])
@@ -3709,6 +3984,8 @@ def main() -> int:
     log("[lm-metrics] " + json.dumps({"card": card, **{k: v for k, v in lm.items() if k != "launches"}}))
     log("[train-metrics] " + json.dumps({"card": card, **train}))
     log("[shard-metrics] " + json.dumps({"card": card, **{k: v for k, v in shard.items() if k != "launches"}}))
+    log("[serve-shard-metrics] " + json.dumps({"card": card, **{k: v for k, v in serve_shard.items()
+                                                                if k != "launches"}}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -18,12 +18,14 @@ lowers nothing.  For each cell it writes, from the sharding plan and the
 * ``n_micro`` (``shapes.grad_accum_steps``);
 * FLOPs and HBM bytes (``analysis.flops``) and the roofline terms on an
   H100 (``analysis.roofline``);
-* for a train cell, the collectives the port's sharded step issues, by
-  kind: calls and one device's result bytes, from :func:`step_collectives`
+* the collectives the port's sharded step issues, by kind: calls and one
+  device's result bytes; for a train cell from :func:`step_collectives`
   (``launch.steps.sharded_train_step``'s schedule as a formula over the
-  plan; a test holds it to the mesh counters of real steps at 2 x 2).
-  The port runs prefill and decode unsharded, so those cells carry no
-  collectives (``"collectives": null``);
+  plan), for a prefill or decode cell from :func:`serve_collectives`
+  (``serving.sharded_prefill``/``sharded_decode_step``'s: heads split
+  over "model", a decode cache placed by ``cache_specs``, ``long_500k``'s
+  slot axis over "data"); tests hold both to the mesh counters of real
+  steps at 2 x 2;
 * for a train cell, ``executor_only``: what the port's step adds because
   it runs the data shards one at a time (:func:`executor_terms`), which
   the roofline leaves out.
@@ -155,6 +157,143 @@ def step_collectives(
     return calls, nbytes
 
 
+def serve_param_gathers(lay, mesh, named_specs, cast: bool):
+    """The gathers at use a sharded step runs, in order, once a step:
+    ``(names, dim, axes, result_shape, dtype)`` each (an ``all-gather``
+    over ``axes`` along ``dim``; result shapes with padding, as GSPMD
+    pads).  ``named_specs``: ``(names, shape, dtype, spec)`` a leaf."""
+    dtype = TF.compute_dtype(lay.cfg)
+    out = []
+    for names, shape, dt, spec in named_specs:
+        need = SD.serve_leaf_need(lay, names, tuple(shape))
+        if need is None:
+            continue
+        _, gathers = SD.serve_leaf_access(mesh, spec, tuple(shape), need)
+        if gathers and cast and names[0] == "stages" and dt == torch.float32:
+            dt = dtype
+        cur = list(block_shape(mesh, spec, tuple(shape)))
+        for d, axes in gathers:
+            cur[d] *= mesh.axis_size(axes)
+            out.append((names, d, axes, tuple(cur), dt))
+    return out
+
+
+def _grouped(cfg: ModelConfig, q_lo: int, q_hi: int) -> Tuple[int, int]:
+    """(KV heads, group) query heads ``[q_lo, q_hi)`` attend as
+    (``layers.group_kv``)."""
+    nq = q_hi - q_lo
+    g = cfg.n_heads // cfg.n_kv_heads
+    if q_lo % g == 0 and nq % g == 0:
+        return nq // g, g
+    if nq and q_lo // g == (q_hi - 1) // g:
+        return 1, nq
+    return nq, 1
+
+
+def serve_collectives(cfg: ModelConfig, mesh: Mesh, strategy: str, shape) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """The collectives one sharded prefill or decode step of ``shape`` (a
+    ``shapes.ShapeSpec``: its kind, batch and sequence, the decode cache's
+    capacity) issues over ``mesh`` under ``strategy``: (calls by kind,
+    device 0's result bytes by kind), the schedule of
+    ``serving.sharded_prefill``/``sharded_decode_step`` as a formula over
+    the plan.  Collectives over groups of one are not run."""
+    calls = dict.fromkeys(COLLECTIVES, 0)
+    nbytes = dict.fromkeys(COLLECTIVES, 0)
+
+    def add(kind, shp, dtype, times=1):
+        calls[kind] += times
+        nbytes[kind] += times * math.prod(shp) * _itemsize(dtype)
+
+    with ST.strategy_context(mesh, strategy) as (plan, ep_axis):
+        cast = TF.ACT_CTX["cast_params"]
+        params = SH.params_struct(cfg)
+        specs = SD.param_specs(cfg, mesh, params, plan)
+    lay = SD.serve_layout(cfg, mesh, shape.batch, shape.kind)
+    named = [(names, tuple(leaf.shape), leaf.dtype, spec) for (names, leaf), (_, spec) in
+             zip(ST._named_leaves(params), ST._named_leaves(specs))]
+    for *_, res, dt in serve_param_gathers(lay, mesh, named, cast):
+        add("all-gather", res, dt)
+
+    dtype = TF.compute_dtype(cfg)
+    d, T = cfg.d_model, lay.tp
+    tp = T > 1
+    decode = shape.kind == "decode"
+    b0 = lay.batch if lay.seq_shard else min(-(-lay.batch // lay.dp_size), lay.batch)
+    n_seq = mesh.shape.get("data", 1) if lay.seq_shard else 1
+    S = 1 if decode else shape.seq
+    s_text = S - (cfg.frontend_tokens if cfg.frontend == "vision" and not decode else 0)
+    if tp:
+        add("all-reduce", (b0, s_text, d), dtype)  # the vocabulary-parallel embedding
+
+    def softmax_over_slots(lead, ctx):  # the slot axis split over "data"
+        if n_seq > 1:
+            add("all-reduce", lead + (1,), torch.float32, 2)  # pmax, the sum of exponentials
+            add("all-reduce", ctx, dtype)
+
+    def attn_decode(slots):
+        q_lo, q_hi = lay.q_heads(0)
+        e0, e1 = lay.hd_block(0)
+        kv, g = _grouped(cfg, q_lo, q_hi) if q_hi > q_lo else (0, 0)
+        lb = -(-slots // n_seq)
+        if lay.attn == "hd" and tp:
+            add("all-reduce", (b0, kv, g, 1, lb), dtype)  # the scores over head_dim blocks
+        softmax_over_slots((b0, kv, g, 1), (b0, 1, kv, g, e1 - e0))
+        if tp:
+            add("all-reduce", (b0, 1, d), dtype)
+
+    def out_psum(rows_s):
+        if tp:
+            add("all-reduce", (b0, rows_s, d), dtype)
+
+    def mixer(g):
+        if g.kind == "ssm":
+            s = cfg.ssm
+            if lay.conv_tp and tp:
+                add("all-gather", (b0, S, s.expand * d + 2 * s.n_groups * s.d_state), dtype)
+            if lay.ssm_tp and tp:
+                add("all-reduce", (b0, S, 1), torch.float32)
+                add("all-reduce", (b0, S, d), dtype)
+        elif decode and cfg.mla is not None:
+            h0, h1 = lay.mla_heads(0)
+            softmax_over_slots((b0, h1 - h0, 1), (b0, 1, h1 - h0, cfg.mla.kv_lora_rank))
+            out_psum(1)
+        elif decode:
+            window = cfg.sliding_window if (not g.is_global and cfg.sliding_window) else None
+            attn_decode(min(shape.seq, window) if window else shape.seq)
+        else:
+            out_psum(S)
+
+    def ffn(g):
+        if not (g.has_moe or cfg.d_ff > 0):
+            return
+        ep = ep_axis is not None and strategy in ("ep", "ep_fsdp")
+        if g.has_moe and not ep and lay.batch_sharded and lay.dp_size > 1:
+            add("all-gather", (lay.dp_size, cfg.moe.n_experts), torch.float32)  # the loads before this shard's
+        out_psum(S)
+
+    plan_ = TF.build_plan(cfg)
+    if cfg.encoder_layers:
+        if not decode:
+            for _ in range(cfg.encoder_layers):
+                out_psum(cfg.encoder_tokens)
+                out_psum(cfg.encoder_tokens)
+        (st,) = plan_
+        for _ in range(st.reps):
+            mixer(st.specs[0])
+            if decode:  # the cross-attention against enc_kv's blocks
+                attn_decode(cfg.encoder_tokens)
+            else:
+                out_psum(S)
+            ffn(st.specs[0])
+    else:
+        for st in plan_:
+            for _ in range(st.reps):
+                for g in st.specs:
+                    mixer(g)
+                    ffn(g)
+    return calls, nbytes
+
+
 def executor_terms(cfg: ModelConfig, n_data: int, n_micro: int, batch: int, strategy: str) -> dict:
     """What the port's step does beyond the reference's program because it
     runs the data shards one at a time, kept out of the roofline: on the
@@ -215,6 +354,13 @@ def plan_cell(arch: str, shape_name: str, mesh: Mesh, strategy: str = "tp") -> d
             memory["cache_bytes_per_device"] = tree_bytes_per_device(mesh, cache, cspecs)
             tspec = SD.P(ax.dp_spec, None) if shape.batch >= dp_size else SD.P(None, None)
             memory["batch_bytes_per_device"] = tree_bytes_per_device(mesh, token, tspec)
+        if shape.kind != "train":
+            calls, nbytes = serve_collectives(cfg, mesh, strategy, shape)
+            lay = SD.serve_layout(cfg, mesh, shape.batch, shape.kind)
+            collectives = {"calls": calls, "bytes": nbytes,
+                           "source": "launch.dryrun.serve_collectives (the sharded serve step's schedule)",
+                           "layout": {"attn": lay.attn, "seq_shard": lay.seq_shard,
+                                      "ssm_tp": lay.ssm_tp, "conv_tp": lay.conv_tp}}
     memory["total_bytes_per_device"] = sum(memory.values())
     specs = {"/".join(names): list(spec) for names, spec in ST._named_leaves(pspecs)}
     rl = RL.analyze(cfg, shape, n_chips, n_micro=extra.get("n_micro", 1),

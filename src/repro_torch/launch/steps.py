@@ -511,12 +511,67 @@ def _adamw_blocks(plan: _Plan, params_sh, named, grads, opt_sh, sq, opt_cfg):
     }
 
 
+def cache_batch(cache) -> int:
+    """The batch a decode cache was made for (from ``kpos``, the SSM
+    state or whisper's ``enc_kv``)."""
+    for names, leaf in _named_leaves(cache):
+        name = names[-1] if names else ""
+        if name == "kpos":
+            return leaf.shape[-2]
+        if name == "ssm":
+            return leaf.shape[-4]
+        if name == "enc_kv":
+            return leaf.shape[2]
+    raise ValueError("a decode cache holds kpos, ssm or enc_kv leaves")
+
+
+def place_serve_state(params, cache, cfg: ModelConfig, mesh: Mesh, strategy: str = "tp"):
+    """``(params, cache)`` placed for sharded serving over ``mesh`` (a
+    ``None`` cache, for a prefill, stays ``None``): params by
+    ``sharding.param_specs`` of ``strategy``'s plan ("ep" plans as "tp"),
+    the cache by ``sharding.cache_specs`` for its batch (its slot axis over
+    "data" where the batch is below the data axes).  Blocks that need no
+    padding are views of the given tensors where they already lie on their
+    device (``copy=False``: nothing is allocated for them, and the cache's
+    blocks are written in place); uneven splits are padded as GSPMD pads
+    them (the step never reads a padded slot).  Place a copy of a cache
+    whose buffers must stay as they are."""
+    plan = "tp" if strategy == "ep" else strategy
+    if plan not in STRATEGIES:
+        raise ValueError(f"strategy must be one of {STRATEGIES}, got {strategy!r}")
+    placed = device_put(params, SD.shardings_of(mesh, SD.param_specs(cfg, mesh, params, plan)), pad=True)
+    if cache is None:
+        return placed, None
+    cspecs = SD.cache_specs(cfg, mesh, cache, cache_batch(cache))
+    return placed, device_put(cache, SD.shardings_of(mesh, cspecs), pad=True)
+
+
+def placed_bytes(tree) -> Dict[str, int]:
+    """One device's bytes of a placed tree (its blocks) and the bytes its
+    placement allocated on the mesh's devices (storages that are not views
+    of the tensors it was placed from: buffers, padded blocks and copies
+    to other devices)."""
+    per_device = 0
+    seen: Dict[Tuple[str, int], int] = {}
+    for _, sh in _named_leaves(tree):
+        per_device += sh.shards[0].numel() * sh.shards[0].element_size()
+        for b in sh.shards:
+            st = b.untyped_storage()
+            seen[(str(b.device), st.data_ptr())] = st.nbytes()
+    return {"per_device": per_device, "storages": sum(seen.values())}
+
+
 def make_prefill_step(cfg: ModelConfig, ep_axis: Optional[str] = "model"):
     """Full-sequence forward emitting last-position logits only (serving
-    samples from the last position)."""
+    samples from the last position).  Given params placed over a mesh
+    (:func:`place_serve_state`) it runs sharded (``serving.sharded_prefill``:
+    the batch over the data axes, heads over "model") and returns the
+    logits vocabulary-sharded over "model"."""
 
     def prefill_step(params, batch):
         with torch.no_grad():
+            if SV.is_sharded(params):
+                return SV.sharded_prefill(params, cfg, batch["tokens"], batch.get("frontend"), ep_axis)
             logits, _, _ = TF.forward(
                 params, cfg, batch["tokens"], batch.get("frontend"), ep_axis=ep_axis, remat=False, last_only=True
             )
@@ -526,10 +581,15 @@ def make_prefill_step(cfg: ModelConfig, ep_axis: Optional[str] = "model"):
 
 
 def make_serve_step(cfg: ModelConfig, ep_axis: Optional[str] = "model"):
-    """One-token decode against the static cache (updated in place)."""
+    """One-token decode against the static cache (updated in place).
+    Given params and a cache placed over a mesh (:func:`place_serve_state`)
+    it runs sharded (``serving.sharded_decode_step``) and returns the
+    logits vocabulary-sharded over "model"."""
 
     def serve_step(params, cache, token):
         with torch.no_grad():
+            if SV.is_sharded(params):
+                return SV.sharded_decode_step(params, cfg, cache, token, ep_axis=ep_axis)
             return SV.decode_step(params, cfg, cache, token, ep_axis=ep_axis)
 
     return serve_step

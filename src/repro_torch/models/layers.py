@@ -216,18 +216,10 @@ def apply_attention(
     B, S, d = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
-    q = torch.einsum("bsd,dh->bsh", x, p["wq"].to(dt))
-    if "bq" in p:
-        q = q + p["bq"].to(dt)
-    q = q.reshape(B, S, h, hd)
+    q = project_heads(x, p["wq"], p.get("bq"), h, hd)
     if kv is None:
-        k = torch.einsum("bsd,dh->bsh", x, p["wk"].to(dt))
-        v = torch.einsum("bsd,dh->bsh", x, p["wv"].to(dt))
-        if "bk" in p:
-            k = k + p["bk"].to(dt)
-            v = v + p["bv"].to(dt)
-        k = k.reshape(B, S, kvh, hd)
-        v = v.reshape(B, S, kvh, hd)
+        k = project_heads(x, p["wk"], p.get("bk"), kvh, hd)
+        v = project_heads(x, p["wv"], p.get("bv"), kvh, hd)
         k_pos = positions
         if use_rope:
             k = apply_rope(k, k_pos, cfg.rope_theta)
@@ -243,14 +235,9 @@ def apply_attention(
             qg, k, v, positions, k_pos, scale=1.0 / math.sqrt(hd), softcap=cfg.logit_softcap, **flash
         ).reshape(B, S, h * hd)
     else:
-        scores = torch.einsum("bskgh,btkh->bkgst", qg, k) / math.sqrt(hd)
-        if cfg.logit_softcap:
-            c = cfg.logit_softcap
-            scores = torch.tanh(scores / c) * c
-        if mask is not None:
-            scores = torch.where(mask[:, None, None, :, :], scores, BIG_NEG)
+        scores = finish_scores(cfg, head_scores(qg, k), hd, mask)
         probs = torch.softmax(scores.float(), dim=-1).to(dt)
-        ctx = torch.einsum("bkgst,btkh->bskgh", probs, v).reshape(B, S, h * hd)
+        ctx = head_context(probs, v).reshape(B, S, h * hd)
     out = torch.einsum("bsh,hd->bsd", ctx, p["wo"].to(dt))
     return out, (k, v)
 
@@ -339,3 +326,68 @@ def lm_logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         w = p["head"].to(x.dtype)
     return torch.einsum("bsd,dv->bsv", x, w)
+
+
+# ------------------------------------------------------------------ head-split pieces
+# Sharded serving (``serving``'s mesh steps) runs these on each model
+# shard's slice of the weights; the mesh sums their partial outputs.
+
+def embed_tokens_shard(table: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor, dtype, lo: int) -> torch.Tensor:
+    """A vocabulary-parallel embedding's part on the shard holding table
+    rows ``[lo, lo + len(table))``: the ids in that block gathered, zeros
+    elsewhere (a ``psum`` over "model" gives :func:`embed_tokens`)."""
+    local = tokens.long() - lo
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.clamp(local, 0, max(table.shape[0] - 1, 0))].to(dtype)
+    return torch.where(mine[..., None], rows, torch.zeros((), dtype=dtype, device=rows.device)) * math.sqrt(
+        cfg.d_model)
+
+
+def project_heads(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], n: int, hd: int) -> torch.Tensor:
+    """``x @ w (+ b)`` as ``n`` heads of ``hd`` [B, S, n, hd] (``w`` the
+    columns of those heads)."""
+    y = torch.einsum("bsd,dh->bsh", x, w.to(x.dtype))
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y.reshape(x.shape[0], x.shape[1], n, hd)
+
+
+def group_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_lo: int, n_heads: int, n_kv: int, kv_lo: int):
+    """Query heads ``q`` [B, S, nq, hd] (heads ``q_lo...`` of ``n_heads``)
+    against KV heads ``k``/``v`` [B, T, m, hd] (heads ``kv_lo...`` of
+    ``n_kv``): ``(qg [B, S, kv, g, hd], k, v)`` grouped as the reference
+    folds the group into q's head axis (views where the query heads cover
+    whole groups or lie in one; else each query head's KV head is
+    selected)."""
+    B, S, nq, hd = q.shape
+    g = n_heads // n_kv
+    if q_lo % g == 0 and nq % g == 0:
+        a = q_lo // g - kv_lo
+        return q.reshape(B, S, nq // g, g, hd), k[:, :, a:a + nq // g], v[:, :, a:a + nq // g]
+    if nq and q_lo // g == (q_lo + nq - 1) // g:
+        a = q_lo // g - kv_lo
+        return q.reshape(B, S, 1, nq, hd), k[:, :, a:a + 1], v[:, :, a:a + 1]
+    idx = torch.tensor([(q_lo + t) // g - kv_lo for t in range(nq)], dtype=torch.long, device=k.device)
+    return q.reshape(B, S, nq, 1, hd), k.index_select(2, idx), v.index_select(2, idx)
+
+
+def head_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Grouped-query scores [B, kv, g, S, T] before the scale."""
+    return torch.einsum("bskgh,btkh->bkgst", qg, k)
+
+
+def finish_scores(cfg: ModelConfig, s: torch.Tensor, hd: int, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The scale, the optional softcap and the mask, as
+    :func:`apply_attention` applies them (``mask`` [B, S, T])."""
+    s = s / math.sqrt(hd)
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        s = torch.tanh(s / c) * c
+    if mask is not None:
+        s = torch.where(mask[:, None, None, :, :], s, BIG_NEG)
+    return s
+
+
+def head_context(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[B, S, kv, g, vd] from probabilities [B, kv, g, S, T]."""
+    return torch.einsum("bkgst,btkh->bskgh", probs, v)

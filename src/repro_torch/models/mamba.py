@@ -146,6 +146,55 @@ def ssd_chunked(
     return y[:, :S_orig], final_state.to(xh.dtype)
 
 
+def project(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """The fused ``in_proj``: ``(z, xbc, dt)`` (``xbc`` feeds the conv)."""
+    return _split_proj(cfg, torch.einsum("bsd,dp->bsp", x, p["in_proj"].to(x.dtype)))
+
+
+def ssm_heads(
+    p: Params,
+    cfg: ModelConfig,
+    xbc: torch.Tensor,  # [B, S, conv_dim] after the conv
+    z: torch.Tensor,  # [B, S, d_inner] gate
+    dt: torch.Tensor,  # [B, S, H] before softplus
+    heads: Tuple[int, int],
+    state: torch.Tensor | None = None,  # [B, h, hd, N] of these heads
+    step: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSM of state heads ``[h0, h1)``: the chunked scan (from
+    ``state`` if given) or, with ``step``, one recurrent decode step
+    (``state = a * state + dt * B x``).  Returns (the gated output [B, S,
+    (h1 - h0) * hd], before the norm; the new state)."""
+    s, d_inner, n_heads = _dims(cfg)
+    h0, h1 = heads
+    B, S = xbc.shape[0], xbc.shape[1]
+    g = s.n_groups * s.d_state
+    xi, Bm, Cm = torch.split(xbc, [d_inner, g, g], dim=-1)
+    xh = xi.reshape(B, S, n_heads, s.head_dim)[:, :, h0:h1]
+    rep = n_heads // s.n_groups  # each head's group, repeated onto the head axis
+    Bh = torch.repeat_interleave(Bm.reshape(B, S, s.n_groups, s.d_state), rep, dim=2)[:, :, h0:h1]
+    Ch = torch.repeat_interleave(Cm.reshape(B, S, s.n_groups, s.d_state), rep, dim=2)[:, :, h0:h1]
+    dt_act = F.softplus(dt.float()[..., h0:h1] + p["dt_bias"][h0:h1])  # [B, S, h]
+    A = torch.exp(p["A_log"][h0:h1])  # > 0
+    D = p["D"][h0:h1].to(xbc.dtype)
+    if step:
+        x1, dt1 = xh[:, 0], dt_act[:, 0]
+        a = torch.exp(-dt1 * A[None, :])  # [B, h]
+        upd = torch.einsum("bhd,bhn->bhdn", x1 * dt1[..., None].to(xbc.dtype), Bh[:, 0])
+        new_state = a[..., None, None].to(xbc.dtype) * state + upd
+        y = (torch.einsum("bhdn,bhn->bhd", new_state, Ch[:, 0]) + x1 * D[None, :, None])[:, None]
+    else:
+        y, new_state = ssd_chunked(cfg, xh, dt_act, A, Bh, Ch, state)
+        y = y.to(xbc.dtype) + xh * D[None, None, :, None]  # skip
+    y = y.reshape(B, S, (h1 - h0) * s.head_dim) * F.silu(z[..., h0 * s.head_dim:h1 * s.head_dim])
+    return y, new_state
+
+
+def gated_out(p: Params, y: torch.Tensor) -> torch.Tensor:
+    """The gated norm over ``d_inner`` and ``out_proj``."""
+    return torch.einsum("bsi,id->bsd", apply_norm(p["out_norm"], y), p["out_proj"].to(y.dtype))
+
+
 def apply_mamba(
     p: Params,
     cfg: ModelConfig,
@@ -153,26 +202,10 @@ def apply_mamba(
     state: Tuple[torch.Tensor, torch.Tensor] | None = None,  # (ssm_state, conv_tail)
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence forward (prefill).  Returns (y, new_state)."""
-    s, d_inner, n_heads = _dims(cfg)
-    B, S, d = x.shape
-    proj = torch.einsum("bsd,dp->bsp", x, p["in_proj"].to(x.dtype))
-    z, xbc, dt = _split_proj(cfg, proj)
-    ssm_state = state[0] if state is not None else None
-    tail = state[1] if state is not None else None
-    xbc, new_tail = _conv_causal(xbc, p["conv_w"], p["conv_b"], tail)
-    g = s.n_groups * s.d_state
-    xi, Bm, Cm = torch.split(xbc, [d_inner, g, g], dim=-1)
-    xh = xi.reshape(B, S, n_heads, s.head_dim)
-    Bm = Bm.reshape(B, S, s.n_groups, s.d_state)
-    Cm = Cm.reshape(B, S, s.n_groups, s.d_state)
-    dt_act = F.softplus(dt.float() + p["dt_bias"])  # [B,S,H]
-    A = torch.exp(p["A_log"])  # [H] > 0
-    y, new_ssm = ssd_chunked(cfg, xh, dt_act, A, Bm, Cm, ssm_state)
-    y = y.to(x.dtype) + xh * p["D"].to(x.dtype)[None, None, :, None]  # skip
-    y = y.reshape(B, S, d_inner) * F.silu(z)
-    y = apply_norm(p["out_norm"], y)
-    out = torch.einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
-    return out.to(x.dtype), (new_ssm, new_tail)
+    z, xbc, dt = project(p, cfg, x)
+    xbc, new_tail = _conv_causal(xbc, p["conv_w"], p["conv_b"], None if state is None else state[1])
+    y, new_ssm = ssm_heads(p, cfg, xbc, z, dt, (0, _dims(cfg)[2]), None if state is None else state[0])
+    return gated_out(p, y).to(x.dtype), (new_ssm, new_tail)
 
 
 def decode_step_mamba(
@@ -182,28 +215,10 @@ def decode_step_mamba(
     state: Tuple[torch.Tensor, torch.Tensor],  # (ssm_state [B,H,hd,N], conv_tail [B,K-1,C])
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """O(1) recurrent decode step."""
-    s, d_inner, n_heads = _dims(cfg)
-    B = x.shape[0]
-    ssm_state, tail = state
-    proj = torch.einsum("bsd,dp->bsp", x, p["in_proj"].to(x.dtype))
-    z, xbc, dt = _split_proj(cfg, proj)
-    xbc, new_tail = _conv_causal(xbc, p["conv_w"], p["conv_b"], tail)
-    g = s.n_groups * s.d_state
-    xi, Bm, Cm = torch.split(xbc, [d_inner, g, g], dim=-1)
-    xh = xi.reshape(B, n_heads, s.head_dim)
-    rep = n_heads // s.n_groups
-    Bm = torch.repeat_interleave(Bm.reshape(B, s.n_groups, s.d_state), rep, dim=1)
-    Cm = torch.repeat_interleave(Cm.reshape(B, s.n_groups, s.d_state), rep, dim=1)
-    dt_act = F.softplus(dt.float().reshape(B, n_heads) + p["dt_bias"])
-    A = torch.exp(p["A_log"])
-    a = torch.exp(-dt_act * A[None, :])  # [B, H]
-    upd = torch.einsum("bhd,bhn->bhdn", xh * dt_act[..., None].to(x.dtype), Bm)
-    new_ssm = a[..., None, None].to(x.dtype) * ssm_state + upd
-    y = torch.einsum("bhdn,bhn->bhd", new_ssm, Cm) + xh * p["D"].to(x.dtype)[None, :, None]
-    y = y.reshape(B, 1, d_inner) * F.silu(z)
-    y = apply_norm(p["out_norm"], y)
-    out = torch.einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
-    return out.to(x.dtype), (new_ssm, new_tail)
+    z, xbc, dt = project(p, cfg, x)
+    xbc, new_tail = _conv_causal(xbc, p["conv_w"], p["conv_b"], state[1])
+    y, new_ssm = ssm_heads(p, cfg, xbc, z, dt, (0, _dims(cfg)[2]), state[0], step=True)
+    return gated_out(p, y).to(x.dtype), (new_ssm, new_tail)
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -48,6 +48,31 @@ def _queries(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
 
+def absorbed_scores(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                    latents: Tuple[torch.Tensor, torch.Tensor]):
+    """The absorbed decode's scaled scores [B, H, Sq, Sk] (W_uk folded into
+    the query) and W_uv [r, H, v] for :func:`absorbed_out`."""
+    m = cfg.mla
+    h = cfg.n_heads
+    c_kv, k_rope = latents
+    q_nope, q_rope = _queries(p, cfg, x, positions)
+    wukv = p["wukv"].to(x.dtype).reshape(m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim)
+    wuk, wuv = wukv[..., : m.qk_nope_dim], wukv[..., m.qk_nope_dim :]
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope, wuk)  # absorb W_uk into q
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    scores = (
+        torch.einsum("bshr,btr->bhst", q_abs, c_kv) + torch.einsum("bshe,bte->bhst", q_rope, k_rope)
+    ) * scale
+    return scores, wuv
+
+
+def absorbed_out(p: Params, cfg: ModelConfig, ctx_lat: torch.Tensor, wuv: torch.Tensor) -> torch.Tensor:
+    """The latent context [B, Sq, H, r] through W_uv and ``wo``."""
+    B, Sq, h, _ = ctx_lat.shape
+    ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, wuv).reshape(B, Sq, h * cfg.mla.v_head_dim)
+    return torch.einsum("bsh,hd->bsd", ctx, p["wo"].to(ctx.dtype))
+
+
 def apply_mla_absorbed(
     p: Params,
     cfg: ModelConfig,
@@ -61,24 +86,12 @@ def apply_mla_absorbed(
         scores = (q_nope W_uk^T) . c_kv + q_rope . k_rope
         ctx    = (probs . c_kv) W_uv
     """
-    m = cfg.mla
-    B, Sq, d = x.shape
-    h = cfg.n_heads
-    c_kv, k_rope = latents
-    q_nope, q_rope = _queries(p, cfg, x, positions)
-    wukv = p["wukv"].to(x.dtype).reshape(m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim)
-    wuk, wuv = wukv[..., : m.qk_nope_dim], wukv[..., m.qk_nope_dim :]
-    q_abs = torch.einsum("bshn,rhn->bshr", q_nope, wuk)  # absorb W_uk into q
-    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
-    scores = (
-        torch.einsum("bshr,btr->bhst", q_abs, c_kv) + torch.einsum("bshe,bte->bhst", q_rope, k_rope)
-    ) * scale
+    scores, wuv = absorbed_scores(p, cfg, x, positions, latents)
     if mask is not None:
         scores = torch.where(mask[:, None, :, :], scores, BIG_NEG)
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-    ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_kv)  # stay in latent space
-    ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, wuv).reshape(B, Sq, h * m.v_head_dim)
-    return torch.einsum("bsh,hd->bsd", ctx, p["wo"].to(x.dtype))
+    ctx_lat = torch.einsum("bhst,btr->bshr", probs, latents[0])  # stay in latent space
+    return absorbed_out(p, cfg, ctx_lat, wuv)
 
 
 def mla_latents(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):

@@ -93,43 +93,14 @@ def apply_moe(
     T = B * S
     E, k = m.n_experts, m.top_k
     xt = x.reshape(T, d)
-    logits = torch.einsum("td,de->te", xt, p["router"].to(x.dtype))
-    logits = logits.float() * m.router_scale
-    gates = torch.softmax(logits, dim=-1)
-    select_scores = logits + p["router_bias"] if m.router_aux_free else logits
-    _, top_idx = top_k(select_scores, k)  # [T, k]
-    top_gates = torch.gather(gates, 1, top_idx)  # [T, k]
-    top_gates = top_gates / (top_gates.sum(-1, keepdim=True) + 1e-9)
+    rt = route(p, cfg, xt)
 
-    # ---- dispatch: rank within expert, drop over capacity
+    # ---- dispatch: rank within expert, drop over capacity; the experts
     stats = SHARD_CONTEXT["stats"]
-    C = _capacity(m, T if stats is None else stats.tokens)
-    rank = _rank_in_expert(top_idx)
-    if stats is not None:  # the data shards before this one came first in the global order
-        rank = rank + stats.offsets(E, x.device)[top_idx]
-    keep = rank < C  # [T, k]
-    slot = torch.where(keep, top_idx * C + rank, E * C)  # a drop -> out of range
-
-    # The reference's .at[slot].set(xt, mode="drop") drops out-of-range
-    # slots; here they land in one extra row that is cut off (an index out
-    # of range is an error in torch, and masking by a boolean index would
-    # wait on the host)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    for kk in range(k):  # each token is written to up to k expert slots
-        buf.index_copy_(0, slot[:, kk], xt)
-    buf = buf[: E * C].reshape(E, C, d)
-
-    # ---- expert FFN (grouped einsum)
-    g = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"].to(x.dtype)))
-    u = torch.einsum("ecd,edf->ecf", buf, p["wu"].to(x.dtype))
-    eo = torch.einsum("ecf,efd->ecd", g * u, p["wd"].to(x.dtype)).reshape(E * C, d)
-
-    # ---- combine
-    out = torch.zeros((T, d), dtype=x.dtype, device=x.device)
-    for kk in range(k):
-        safe = torch.clamp(slot[:, kk], max=E * C - 1)
-        contrib = eo[safe] * top_gates[:, kk : kk + 1].to(x.dtype)
-        out = out + torch.where(keep[:, kk : kk + 1], contrib, 0)
+    # the data shards before this one came first in the global order
+    offsets = None if stats is None else stats.offsets(E, x.device)
+    out, keep = experts_partial(p, cfg, xt, rt, offsets, T if stats is None else stats.tokens, 0, E)
+    gates = rt["gates"]
 
     # ---- shared experts (always-on dense path)
     if "shared" in p:
@@ -139,10 +110,7 @@ def apply_moe(
         out = out + torch.einsum("tf,fd->td", sg * su, s["wd"].to(x.dtype))
 
     # ---- telemetry: streaming load stats as associative-array triples
-    load = torch.zeros((E,), dtype=torch.float32, device=x.device)
-    ones = torch.ones((T,), dtype=torch.float32, device=x.device)
-    for kk in range(k):  # expert ids are always in range: nothing to drop
-        load.index_add_(0, top_idx[:, kk], ones)
+    load = rt["load"]
     importance = gates.sum(0)
     if stats is not None:
         aux_loss = stats.local_aux(cfg, load, importance, T)
@@ -156,6 +124,76 @@ def apply_moe(
         "moe_dropped": dropped.to(torch.int32),
     }
     return out.reshape(B, S, d), aux
+
+
+def route(p: Params, cfg: ModelConfig, xt: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Router logits -> top-k experts a token [T, d]: the gates, the
+    chosen experts and their normalised gates [T, k], each assignment's
+    rank among this call's assignments to its expert (token-major), and
+    the load (assignments an expert, float32 [E])."""
+    m = cfg.moe
+    logits = torch.einsum("td,de->te", xt, p["router"].to(xt.dtype))
+    logits = logits.float() * m.router_scale
+    gates = torch.softmax(logits, dim=-1)
+    select_scores = logits + p["router_bias"] if m.router_aux_free else logits
+    _, top_idx = top_k(select_scores, m.top_k)  # [T, k]
+    top_gates = torch.gather(gates, 1, top_idx)  # [T, k]
+    top_gates = top_gates / (top_gates.sum(-1, keepdim=True) + 1e-9)
+    load = torch.zeros((m.n_experts,), dtype=torch.float32, device=xt.device)
+    ones = torch.ones((xt.shape[0],), dtype=torch.float32, device=xt.device)
+    for kk in range(m.top_k):  # expert ids are always in range: nothing to drop
+        load.index_add_(0, top_idx[:, kk], ones)
+    return {"gates": gates, "top_idx": top_idx, "top_gates": top_gates, "rank": _rank_in_expert(top_idx),
+            "load": load}
+
+
+def experts_partial(p: Params, cfg: ModelConfig, xt: torch.Tensor, rt: Dict[str, torch.Tensor],
+                    offsets: Optional[torch.Tensor], tokens: int, e0: int, e1: int):
+    """The routed experts ``[e0, e1)``'s share of the output [T, d] (the
+    whole output for ``[0, E)``), and which assignments are kept [T, k].
+
+    ``p``'s expert weights hold those experts first (a model shard's
+    block, or all of them); ``offsets`` [E] counts the assignments made by
+    tokens earlier in the global order (other data shards'); ``tokens`` is
+    the global count the capacity is drawn from.  Under capacity the
+    assignments are written into an ``[E, C, d]`` buffer, the expert FFNs
+    run as grouped einsums, and each token gathers its outputs weighted by
+    its gates; dropped assignments contribute zero."""
+    m = cfg.moe
+    T, d = xt.shape
+    ne = e1 - e0
+    C = _capacity(m, tokens)
+    top_idx = rt["top_idx"]
+    rank = rt["rank"]
+    if offsets is not None:
+        rank = rank + offsets.long()[top_idx]
+    keep = rank < C  # [T, k]
+    out = torch.zeros((T, d), dtype=xt.dtype, device=xt.device)
+    if ne <= 0:
+        return out, keep
+    mine = keep if (e0, e1) == (0, m.n_experts) else keep & (top_idx >= e0) & (top_idx < e1)
+    slot = torch.where(mine, (top_idx - e0) * C + rank, ne * C)  # a drop -> out of range
+
+    # The reference's .at[slot].set(xt, mode="drop") drops out-of-range
+    # slots; here they land in one extra row that is cut off (an index out
+    # of range is an error in torch, and masking by a boolean index would
+    # wait on the host)
+    buf = torch.zeros((ne * C + 1, d), dtype=xt.dtype, device=xt.device)
+    for kk in range(m.top_k):  # each token is written to up to k expert slots
+        buf.index_copy_(0, slot[:, kk], xt)
+    buf = buf[: ne * C].reshape(ne, C, d)
+
+    # ---- expert FFN (grouped einsum)
+    g = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"][:ne].to(xt.dtype)))
+    u = torch.einsum("ecd,edf->ecf", buf, p["wu"][:ne].to(xt.dtype))
+    eo = torch.einsum("ecf,efd->ecd", g * u, p["wd"][:ne].to(xt.dtype)).reshape(ne * C, d)
+
+    # ---- combine
+    for kk in range(m.top_k):
+        safe = torch.clamp(slot[:, kk], max=ne * C - 1)
+        contrib = eo[safe] * rt["top_gates"][:, kk : kk + 1].to(xt.dtype)
+        out = out + torch.where(mine[:, kk : kk + 1], contrib, 0)
+    return out, keep
 
 
 def router_stats_triples(load: torch.Tensor, layer_idx: int):

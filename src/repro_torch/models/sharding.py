@@ -311,3 +311,211 @@ def cache_specs(cfg: ModelConfig, mesh: Mesh, cache_shape, batch: int) -> Any:
 
 def shardings_of(mesh: Mesh, specs) -> Any:
     return tree_map_with_path(lambda _, s: NamedSharding(mesh, s), specs)
+
+
+# ---------------------------------------------------------------------------
+# sharded serving: the head-split layout and what each leaf must give it
+# ---------------------------------------------------------------------------
+
+def ceil_ranges(n: int, k: int) -> Tuple[Tuple[int, int], ...]:
+    """``[lo, hi)`` of each of ``k`` GSPMD blocks of an extent ``n``
+    (``ceil(n / k)`` a block; the last blocks may be short or empty)."""
+    b = -(-n // k)
+    return tuple((min(j * b, n), min((j + 1) * b, n)) for j in range(k))
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeLayout:
+    """How a sharded prefill or decode step splits its work over a
+    ``(dp..., "model")`` mesh: the compute that :func:`param_specs`' "tp"
+    plan and :func:`cache_specs` imply.
+
+    * ``kind``: "decode", "prefill" or "encoder" (whisper's
+      ``prefill_encoder``, which stages the decode cache's ``enc_kv``).
+    * The batch lies over the data axes when ``batch >= dp size``; below
+      it (``long_500k``) every data shard holds the whole batch and the
+      cache's slot axis is split over "data" (``seq_shard``).
+    * Attention heads over "model", by ``attn``: "kv" (each model shard
+      its KV heads and their query groups; ``n_kv_heads % tp == 0``), "hd"
+      (a cache split on ``head_dim``: each shard that block of every head,
+      the partial scores summed over "model" before the softmax) or "q"
+      (each shard a ceil block of query heads, over a replicated cache or,
+      without one, over the KV heads those heads read).
+    * MLA: a ceil block of heads; its latents replicated.
+    * Mamba-2: state heads over "model" where ``ssm_tp`` (else every shard
+      all of them), conv channels where ``conv_tp``.
+    * FFN columns, expert blocks and vocabulary blocks: GSPMD's ceil
+      blocks over "model"."""
+
+    cfg: ModelConfig = dataclasses.field(repr=False)
+    kind: str
+    tp: int
+    dp: Tuple[str, ...]
+    dp_size: int
+    batch: int
+    seq_shard: bool
+    attn: str
+    ssm_tp: bool
+    conv_tp: bool
+
+    @property
+    def batch_sharded(self) -> bool:
+        return not self.seq_shard
+
+    def prefill(self) -> "ServeLayout":
+        """The layout a cache-free pass takes (whisper's encoder, the cross
+        K/V of a prefill): no slot axis, no "hd" split."""
+        attn = "kv" if self.attn == "kv" else "q"
+        return dataclasses.replace(self, kind="prefill", seq_shard=False, attn=attn)
+
+    def q_heads(self, j: int) -> Tuple[int, int]:
+        """Model shard ``j``'s query heads (every head under "hd")."""
+        cfg = self.cfg
+        if self.attn == "hd":
+            return 0, cfg.n_heads
+        if self.attn == "kv":
+            n = cfg.n_heads // self.tp
+            return j * n, (j + 1) * n
+        return ceil_ranges(cfg.n_heads, self.tp)[j]
+
+    def kv_heads(self, j: int) -> Tuple[int, int]:
+        """The KV heads model shard ``j`` computes: its own under "kv";
+        every one under "hd" and against a replicated cache (it writes them
+        all); in a prefill's "q" those its query heads read."""
+        cfg = self.cfg
+        if self.attn == "kv":
+            n = cfg.n_kv_heads // self.tp
+            return j * n, (j + 1) * n
+        if self.attn == "hd" or self.kind != "prefill":
+            return 0, cfg.n_kv_heads
+        lo, hi = self.q_heads(j)
+        if hi <= lo:
+            return 0, 0
+        g = cfg.n_heads // cfg.n_kv_heads
+        return lo // g, (hi - 1) // g + 1
+
+    def hd_block(self, j: int) -> Tuple[int, int]:
+        return ceil_ranges(self.cfg.hd, self.tp)[j] if self.attn == "hd" else (0, self.cfg.hd)
+
+    def mla_heads(self, j: int) -> Tuple[int, int]:
+        return ceil_ranges(self.cfg.n_heads, self.tp)[j]
+
+    def ssm_heads(self, j: int) -> Tuple[int, int]:
+        s = self.cfg.ssm
+        n = s.expand * self.cfg.d_model // s.head_dim
+        return ceil_ranges(n, self.tp)[j] if self.ssm_tp else (0, n)
+
+    def conv_channels(self, j: int) -> Tuple[int, int]:
+        s = self.cfg.ssm
+        c = s.expand * self.cfg.d_model + 2 * s.n_groups * s.d_state
+        return ceil_ranges(c, self.tp)[j] if self.conv_tp else (0, c)
+
+    def vocab(self, j: int) -> Tuple[int, int]:
+        return ceil_ranges(self.cfg.vocab_padded, self.tp)[j]
+
+
+def serve_layout(cfg: ModelConfig, mesh: Mesh, batch: int, kind: str = "decode") -> ServeLayout:
+    """The layout of a sharded ``kind`` step of ``batch`` rows over
+    ``mesh`` (the conditions :func:`cache_specs` splits the cache by)."""
+    ax = mesh_axes(mesh)
+    tp = mesh.shape[ax.tp]
+    dp_size = 1
+    for a in ax.dp:
+        dp_size *= mesh.shape[a]
+    if cfg.n_kv_heads % tp == 0:
+        attn = "kv"
+    elif kind != "prefill" and cfg.hd % tp == 0:
+        attn = "hd"
+    else:
+        attn = "q"
+    ssm_tp = conv_tp = False
+    if cfg.ssm is not None:
+        ssm_tp = (cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim) % tp == 0
+        conv_tp = (cfg.ssm.expand * cfg.d_model + 2 * cfg.ssm.n_groups * cfg.ssm.d_state) % tp == 0
+    return ServeLayout(cfg, kind, tp, ax.dp, dp_size, batch, kind != "prefill" and batch < dp_size,
+                       attn, ssm_tp, conv_tp)
+
+
+def _scaled(ranges, k: int):
+    return tuple((lo * k, hi * k) for lo, hi in ranges)
+
+
+def serve_leaf_need(lay: ServeLayout, names: Tuple[str, ...], shape: Tuple[int, ...]):
+    """What a sharded ``lay.kind`` step reads of the param leaf at path
+    ``names`` (of ``shape``) on each model shard: ``None`` (nothing: the
+    step does not use it), ``"whole"`` (the whole leaf), or ``(dim,
+    ranges)``: model shard ``j`` reads ``[lo, hi) = ranges[j]`` of
+    dimension ``dim`` (counted from the end, past stacked leading
+    dimensions)."""
+    cfg = lay.cfg
+    js = range(lay.tp)
+    name = names[-1] if names else ""
+    parent = names[-2] if len(names) >= 2 else ""
+    top = names[0] if names else ""
+    if top == "mtp" or (top == "encoder" and lay.kind == "decode"):
+        return None
+    if lay.kind == "encoder" and top not in ("encoder", "cross"):
+        return None
+    if top == "embed":
+        return (-2 if name == "table" else -1, tuple(lay.vocab(j) for j in js))
+    if name in _REPLICATED:
+        return "whole"
+    if parent == "attn":
+        if top == "cross" and lay.kind == "decode" and name in ("wk", "wv", "bk", "bv"):
+            return None  # a decode reads the staged enc_kv
+        if top == "cross" and lay.kind == "encoder" and name in ("wq", "bq", "wo"):
+            return None
+        # whisper's encoder, and a prefill's cross K/V, split as a cache-free pass
+        la = lay.prefill() if top == "encoder" or (top == "cross" and lay.kind == "prefill") else lay
+        if la.attn == "hd":
+            return "whole"
+        if name in ("wq", "bq", "wo"):
+            return (-2 if name == "wo" else -1, _scaled([la.q_heads(j) for j in js], cfg.hd))
+        return (-1, _scaled([la.kv_heads(j) for j in js], cfg.hd))
+    if parent == "mla":
+        m = cfg.mla
+        heads = [lay.mla_heads(j) for j in js]
+        if name == "wuq":
+            return (-1, _scaled(heads, m.qk_nope_dim + m.qk_rope_dim))
+        if name == "wukv":
+            return (-1, _scaled(heads, m.qk_nope_dim + m.v_head_dim))
+        if name == "wo":
+            return (-2, _scaled(heads, m.v_head_dim))
+        return "whole"  # wdq (q_norm reads the whole latent), wdkv, wk_rope
+    if parent == "ssm":
+        if name in ("conv_w", "conv_b"):
+            return (-1, tuple(lay.conv_channels(j) for j in js)) if lay.conv_tp else "whole"
+        if name == "out_proj":
+            return (-2, _scaled([lay.ssm_heads(j) for j in js], cfg.ssm.head_dim)) if lay.ssm_tp else "whole"
+        return "whole"  # in_proj: its column blocks cut across z | x | B | C | dt
+    if parent == "moe" and name in ("wg", "wu", "wd"):
+        return (-3, ceil_ranges(shape[-3], lay.tp))
+    if name in ("wg", "wu"):  # dense FFN and shared experts: column blocks
+        return (-1, ceil_ranges(shape[-1], lay.tp))
+    if name == "wd":
+        return (-2, ceil_ranges(shape[-2], lay.tp))
+    return "whole"  # the router
+
+
+def serve_leaf_access(mesh: Mesh, spec: P, shape: Tuple[int, ...], need):
+    """How a leaf placed by ``spec`` meets ``need``
+    (:func:`serve_leaf_need`): ``("local", ())`` (every device holds what
+    it reads: a replicated leaf, or model blocks that are the ranges),
+    ``("local", gathers)`` (the model blocks, after an ``all-gather`` of
+    each other split dimension over its data axes), or ``("whole",
+    gathers)`` (an ``all-gather`` of every split dimension, then each shard
+    slices its ranges).  ``gathers`` lists ``(dim, axes)`` in the order the
+    gathers run."""
+    nd = len(shape)
+    split = [(d, spec.dim_axes(d)) for d in range(nd) if spec.dim_axes(d) and mesh.axis_size(spec.dim_axes(d)) > 1]
+    if not split:
+        return "local", ()
+    if isinstance(need, tuple):
+        dim = need[0] % nd
+        ranges = need[1]
+        own = [(d, ax) for d, ax in split if d == dim]
+        rest = [(d, ax) for d, ax in split if d != dim]
+        if (own and own[0][1] == ("model",) and all("model" not in ax for _, ax in rest)
+                and tuple(ranges) == ceil_ranges(shape[dim], mesh.shape["model"])):
+            return "local", tuple(rest)
+    return "whole", tuple(split)
