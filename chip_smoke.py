@@ -60,17 +60,22 @@ Phases, each of which asserts (any failure exits non-zero):
    ``launch.steps``' sharded step, the expert-parallel MoE, the dry run):
    qwen2-0.5b at its published width and depth, ``phase_train``'s batch
    (4 x 2048, two microbatches, remat), on a 2 x 2 ``(data, model)`` mesh
-   of ``cuda:0``: one "fsdp_flat" (ZeRO-3) and one "tp" step (gather at
-   use), each against the unsharded step under the same launch context
-   (loss within 5e-3, each moment leaf within 2^-5 of its max) and timed
-   beside it, their collectives equal to the dry run's formula,
-   ``scatter_add`` once a microbatch on each data shard holding rows, the
-   ZeRO-3 step inside ``plain_versions()`` too; both again in float32 at
-   4 layers within 1e-4; phi3.5-moe at full width (1 layer: 2 do not fit
+   of ``cuda:0``: one "fsdp_flat" (ZeRO-3) and one "tp" step (head-split:
+   heads, FFN columns and vocabulary blocks over "model"), each against
+   the unsharded step under the same launch context (loss within 5e-3,
+   each moment leaf within 2^-5 of its max) and timed beside it, their
+   collectives (the backward's included) equal to the dry run's formula,
+   ``scatter_add`` once a microbatch on each data shard holding rows (and
+   under "tp" on each of its model shards), the ZeRO-3 step inside
+   ``plain_versions()`` too; both again in float32 at 4 layers within
+   1e-4; a "tp" step with top-k compression in float32 at 4 layers
+   against the unsharded compressed step (masks equal away from 1e-6 of
+   each threshold, ``sparse + residual == g + r`` exactly over the
+   blocks); phi3.5-moe at full width (1 layer: 2 do not fit
    with AdamW state) on ``TokenStream``'s Zipf(1.3) ids: the
    expert-parallel MoE at 1 x 4 against the local path on the embedding of
-   those tokens (load and drops exact), one "ep" step at 1 x 4 and one
-   "ep_fsdp" step at 2 x 2; the dry run's qwen2-0.5b ``train_4k`` cell at 16 x 16
+   those tokens (load and drops exact), one "ep" step at 1 x 4 (head-split
+   attention) and one "ep_fsdp" step at 2 x 2; the dry run's qwen2-0.5b ``train_4k`` cell at 16 x 16
    under each strategy, and ``dryrun_assoc`` at 512 shards (group
    10,000, cut from 100,000); a ``[shard-metrics]`` line holds the
    numbers, the ``kernels`` line its launches as ``shard_*`` paths;
@@ -85,6 +90,11 @@ Phases, each of which asserts (any failure exits non-zero):
    equal to ``dryrun.serve_collectives``, and the dry run's 30 serve cells
    at 16 x 16; a ``[serve-shard-metrics]`` line holds the numbers, the
    ``kernels`` line its launches (none) as ``shard_serve``;
+   then the D4M examples (``phase_examples``): ``quickstart`` and
+   ``streaming_analytics --devices 4`` (the mesh engine over ``cuda:0``
+   repeated, two checkpoints and the restore drill) through the kernels
+   and inside ``plain_versions()``: snapshots, top-k and cascade counters
+   bit-identical, the launches as ``example_*`` paths;
 7. make the R-MAT stream once (200 groups of 100,000 scale-20 edges,
    ``configs/d4m_stream.CONFIG``) and count it with numpy;
 8. the ``cuda`` engine at full width: K=8 hash-routed instances of the
@@ -1352,6 +1362,7 @@ def phase_single(torch, np, data):
 SERVE_EVERY = 50  # checkpoint every 50 microbatches of 100,000 (the kill comes after the first)
 SERVE_PUBLISH = 4  # publish a view every 4 microbatches (50 views over the 200 groups)
 SINGLE_SERVE_STEPS = 60  # the single engine's serve, at reduced depth
+SERVE_DEFAULT_STEPS = 60  # the default-ServeConfig serve, at reduced depth (cut from 200 groups)
 LOOPBACK = (8, (4096, 32768), 262_144, 4096, 40)  # K, cuts, top capacity, batch, batches
 
 
@@ -1480,7 +1491,7 @@ def serve_kill_restore(torch, np, cfg, rows, cols, vals, tag, queries=False):
 
 
 def serve_default(torch, np, cfg, rows, cols, vals, want):
-    """The whole stream served uninterrupted into a fresh session with
+    """The given records served uninterrupted into a fresh session with
     ``ServeConfig``'s defaults (``track_degrees=True``: the host degree
     fold on the feed thread, its vectors lifted into each published view),
     publishing every ``SERVE_PUBLISH`` microbatches.  The state equals the
@@ -1538,8 +1549,10 @@ def phase_serve(torch, np, data, want):
     ``ArraySource``, killed after its first checkpoint, restored and
     replayed to a state bit-identical to the library-mode session ``want``
     (degrees not tracked, so full-width queries reduce each view on the
-    card); the whole stream served again with the default ``ServeConfig``
-    (degrees tracked on the host); the kill and replay at reduced depth for the ``single`` engine; and a loopback
+    card); its first ``SERVE_DEFAULT_STEPS`` groups served again with the
+    default ``ServeConfig`` (degrees tracked on the host), against a
+    library-mode session of those groups; the kill and replay at reduced
+    depth for the ``single`` engine; and a loopback
     ``TCPSource`` run whose ``QueryClient`` answers equal the views they
     name."""
     from repro_torch.configs.d4m_stream import CONFIG
@@ -1580,7 +1593,14 @@ def phase_serve(torch, np, data, want):
         "no drop, no overflow")
     del sess, snap
     gc.collect()
-    out["cuda_default"] = serve_default(torch, np, cfg, rows, cols, vals, want)
+    # the default ServeConfig at reduced depth: its host degree fold runs
+    # at a few hundred thousand records a second
+    kd = SERVE_DEFAULT_STEPS * CONFIG.group_size
+    ref_d = D4MStream(cfg)
+    for g in range(SERVE_DEFAULT_STEPS):
+        ref_d.ingest(data["R"][g], data["C"][g], data["V"][g])
+    out["cuda_default"] = serve_default(torch, np, cfg, rows[:kd], cols[:kd], vals[:kd], ref_d)
+    del ref_d
     gc.collect()
 
     # -- the single engine, reduced depth ---------------------------------------
@@ -3262,23 +3282,24 @@ def phase_shard(torch, np):
         float32 master weights), ``train_lm``'s batch of 4 x 2048 tokens in
         two microbatches with remat, on a 2 x 2 ``(data, model)`` mesh of
         ``cuda:0``: one ZeRO-3 step ("fsdp_flat": four data shards) and one
-        "tp" step (gather-at-use compute; two data shards), each against
+        "tp" step (head-split compute over "model"; two data shards), each against
         the unsharded ``make_train_step`` under the same launch context on
         the same state (loss within 5e-3, each first-moment leaf within
         2^-5 of its max), timed beside it; the mesh's collectives equal
         ``dryrun.step_collectives``; ``scatter_add`` once a microbatch on
         each data shard that holds rows of it (a microbatch of 2 rows over
-        4 data shards: two hold a row, two GSPMD's padding alone); the
-        ZeRO-3 step again inside ``plain_versions()``;
-        then both at full width and 4 layers in float32 within 1e-4;
+        4 data shards: two hold a row, two GSPMD's padding alone), under
+        "tp" on each model shard of it; the ZeRO-3 step again inside
+        ``plain_versions()``; then both at full width and 4 layers in
+        float32 within 1e-4, and :func:`compression_leg`;
     (b) phi3.5-moe at full width (depth cut to fit with AdamW state) on
         ``TokenStream``'s Zipf(1.3) ids (``train_lm``'s traffic), 4 x 2048
         tokens in two microbatches: the expert-parallel MoE at
         ``data=1 x model=4`` against the local path on the first layer's
         input for those tokens, their embedding (load and dropped count
         exactly, output within 1e-4 in float32); one "ep" step at 1 x 4
-        and one "ep_fsdp" step at 2 x 2, their collectives equal to the
-        formula;
+        (head-split attention, the experts by ``moe._ep_shard``) and one
+        "ep_fsdp" step at 2 x 2, their collectives equal to the formula;
     (c) the dry run's qwen2-0.5b ``train_4k`` cell at the production
         16 x 16 mesh under each strategy, and ``dryrun_assoc`` at 512
         shards (the group cut), its bytes printed first."""
@@ -3330,6 +3351,7 @@ def phase_shard(torch, np):
             placed = ST.place_train_state(state, cfg, mesh, plan)
             bx = SD.batch_axes(cfg, mesh, plan)
             step = ST.make_train_step(cfg, opt_cfg, n_micro=n_micro, ep_axis=ep_axis, dp_spec=bx)
+            split = ST.head_split(mesh, bx)
             mesh.reset_collectives()
             zero_counts()
             (new, m), s_ms = timed(step, placed, batch)
@@ -3341,8 +3363,10 @@ def phase_shard(torch, np):
             w_times = [w_ms] + [timed(want_step, state, batch)[1] for _ in range(reps - 1)]
         d = mesh.axis_size(bx)
         live = live_shards(ST, batch["tokens"].shape[0] // n_micro, d)
-        check(launches["scatter_add"] == live * n_micro,
-              (tag, "scatter_add once a data shard holding rows a microbatch", launches, d, live, n_micro))
+        per = mesh.shape["model"] if split else 1  # head-split: each model shard's vocabulary block
+        check(launches["scatter_add"] == live * n_micro * per,
+              (tag, "scatter_add once a data shard holding rows (and model shard) a microbatch", launches, d, live,
+               n_micro, per))
         check(counted == DR.step_collectives(cfg, mesh, strategy, n_micro, batch["tokens"].shape[0], seq),
               (tag, "the mesh's collectives equal the dry run's formula", counted))
         loss_err = abs(float(m["loss"]) - float(wm["loss"])) / abs(float(wm["loss"]))
@@ -3350,7 +3374,8 @@ def phase_shard(torch, np):
         worst = max(rel(a, b) for a, b in zip(tree_leaves(got["opt"]["m"]), tree_leaves(want["opt"]["m"])))
         check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(got["params"])), (tag, "finite params"))
         check(loss_err <= loss_rel and worst <= leaf_rel, (tag, "sharded against unsharded", loss_err, worst))
-        res = {"strategy": strategy, "data_shards": d, "data_shards_with_rows": live, "loss": float(m["loss"]), "unsharded_loss": float(wm["loss"]),
+        res = {"strategy": strategy, "head_split": split, "data_shards": d, "data_shards_with_rows": live,
+               "loss": float(m["loss"]), "unsharded_loss": float(wm["loss"]),
                "loss_rel_err": loss_err, "worst_moment_leaf_rel_err": worst, "sharded_ms": times,
                "unsharded_ms": w_times, "collectives": counted[0], "collective_bytes": counted[1],
                "launches": launches}
@@ -3406,9 +3431,12 @@ def phase_shard(torch, np):
         for k, v in res["launches"].items():
             out["launches"]["shard_fp32"][k] = out["launches"]["shard_fp32"].get(k, 0) + v
         del got, placed, step
+    leg_done("a_fp32")
+    out["compression"], out["launches"]["shard_compress"] = compression_leg(
+        torch, np, ST, SD, DR, mesh, fcfg, fstate, batch, opt_cfg, timed)
     del fstate
     free(torch)
-    leg_done("a_fp32")
+    leg_done("a_compress")
 
     # ---- (b) phi3.5-moe at full width: expert parallelism
     ecfg = get_config(SHARD_EP_ARCH)
@@ -3471,17 +3499,19 @@ def phase_shard(torch, np):
             del estate  # the placed copy alone
             bx = SD.batch_axes(ecfg, smesh, plan)
             step = ST.make_train_step(ecfg, opt_cfg, n_micro=TRAIN_MICRO, ep_axis=ep_axis, dp_spec=bx)
+            split = ST.head_split(smesh, bx)
             smesh.reset_collectives()
             zero_counts()
             (new, m), ms = timed(step, placed, ebatch)
             launches = read_counts()
         counted = dict(smesh.collectives), dict(smesh.collective_bytes)
         live = live_shards(ST, 2 * SHARD_EP_BATCH // TRAIN_MICRO, smesh.axis_size(bx))
-        check(launches["scatter_add"] == live * TRAIN_MICRO, (strategy, "scatter_add", launches))
+        per = smesh.shape["model"] if split else 1
+        check(launches["scatter_add"] == live * TRAIN_MICRO * per, (strategy, "scatter_add", launches, per))
         check(counted == DR.step_collectives(ecfg, smesh, strategy, TRAIN_MICRO, 2 * SHARD_EP_BATCH, SHARD_EP_SEQ),
               (strategy, "collectives equal the formula", counted))
         check(np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])), (strategy, "finite loss", m))
-        out["steps"][strategy] = {"mesh": dict(smesh.shape), "loss": float(m["loss"]), "ms": ms,
+        out["steps"][strategy] = {"mesh": dict(smesh.shape), "head_split": split, "loss": float(m["loss"]), "ms": ms,
                                   "collectives": counted[0], "collective_bytes": counted[1], "launches": launches}
         out["launches"][f"shard_{strategy}"] = launches
         log(f"[shard] (b) {strategy} step at {smesh.shape}: loss {float(m['loss']):.4f}, {ms:.1f} ms, collectives "
@@ -3521,6 +3551,165 @@ def phase_shard(torch, np):
     leg_done("c_dryrun")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[shard] phase_shard {out['wall_s']:.1f} s: {out['legs_s']}")
+    return out
+
+
+def compression_leg(torch, np, ST, SD, DR, mesh, cfg, state, batch, opt_cfg, timed):
+    """Top-k compression of a sharded step (``make_train_step(comp_cfg=,
+    dp_spec=)``), float32: (1) ``steps.compress_blocks`` over the unsharded
+    step's ``g`` and a seeded residual placed by "tp" on ``mesh`` against
+    ``compression.compress`` on the whole leaves: bit-identical, ``sparse +
+    residual == g + r`` exactly; (2) one "tp" step with compression
+    against the unsharded compressed step: loss and moments within 1e-4,
+    the kept entries equal except within 1e-6 (of the leaf's max ``|g +
+    r|``) of a leaf's threshold, the collectives (the thresholds'
+    all-gathers) equal to the formula."""
+    from repro_torch.core.mesh import device_put
+    from repro_torch.optim import compression
+    from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
+
+    comp = compression.CompressionConfig(enabled=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED + 1)
+    residual = tree_map(lambda p: torch.randn(p.shape, generator=gen, device=DEVICE) * 1e-3, state["params"])
+    params = state["params"]
+    tokens, labels = batch["tokens"], batch["labels"]
+    mb = tokens.shape[0] // TRAIN_MICRO
+    vg = ST.value_and_grad(cfg, None)
+    g = None  # the unsharded step's gradient: the microbatches' mean
+    for i in range(TRAIN_MICRO):
+        _, _, gi = vg(params, tokens[i * mb:(i + 1) * mb], labels[i * mb:(i + 1) * mb], None)
+        g = gi if g is None else tree_unflatten(params, [a + b for a, b in zip(tree_leaves(g), tree_leaves(gi))])
+    g = tree_map(lambda x: x / TRAIN_MICRO, g)
+    want_s, want_r = compression.compress(g, residual, comp)
+    specs = SD.shardings_of(mesh, SD.param_specs(cfg, mesh, params, "tp"))
+    gs, rs = device_put(g, specs, copy=True, pad=True), device_put(residual, specs, copy=True, pad=True)
+    named = ST._named_leaves(gs)
+    sparse, res = ST.compress_blocks(mesh, named, [list(sh.shards) for _, sh in named], ST._named_leaves(rs), comp)
+    exact = True
+    for (_, sh), s_blocks, r_sh, ws, wr, gg, rr in zip(named, sparse, res, tree_leaves(want_s), tree_leaves(want_r),
+                                                       tree_leaves(g), tree_leaves(residual)):
+        got_s = ST.Sharded(sh.sharding, tuple(s_blocks), sh.shape).gather()
+        got_r = r_sh.gather()
+        exact &= bool(torch.equal(got_s, ws) and torch.equal(got_r, wr) and torch.equal(got_s + got_r, gg + rr))
+    check(exact, "(a) compression: compress_blocks over the blocks is compress over the leaves, sparse + r exact")
+    del gs, rs, sparse, res, want_s, want_r
+
+    cstate = dict(state, residual=residual)
+    with ST.strategy_context(mesh, "tp") as (plan, ep_axis):
+        (want, wm), w_ms = timed(ST.make_train_step(cfg, opt_cfg, n_micro=TRAIN_MICRO, ep_axis=ep_axis,
+                                                    comp_cfg=comp), cstate, batch)
+        placed = ST.place_train_state(cstate, cfg, mesh, plan)
+        step = ST.make_train_step(cfg, opt_cfg, n_micro=TRAIN_MICRO, ep_axis=ep_axis, comp_cfg=comp,
+                                  dp_spec=SD.batch_axes(cfg, mesh, plan))
+        mesh.reset_collectives()
+        zero_counts()
+        (new, m), s_ms = timed(step, placed, batch)
+        launches = read_counts()
+        counted = dict(mesh.collectives), dict(mesh.collective_bytes)
+    check(counted == DR.step_collectives(cfg, mesh, "tp", TRAIN_MICRO, tokens.shape[0], tokens.shape[1],
+                                         comp_cfg=comp), ("(a) compression: collectives equal the formula", counted))
+    loss_err = abs(float(m["loss"]) - float(wm["loss"])) / abs(float(wm["loss"]))
+    got = ST.gather_train_state(new)
+    worst = 0.0
+    for a, b in zip(tree_leaves(got["opt"]["m"]), tree_leaves(want["opt"]["m"])):
+        worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+    mism = near = 0
+    for (names, _), gr, wr, gg, rr in zip(ST._named_leaves(params), tree_leaves(got["residual"]),
+                                          tree_leaves(want["residual"]), tree_leaves(g), tree_leaves(residual)):
+        y = gg + rr
+        if y.numel() < comp.min_size:
+            continue
+        k = max(1, int(y.numel() * comp.top_k_frac))
+        thresh = torch.topk(y.abs().reshape(-1), k).values[-1]
+        # the two steps' gradients differ in float32's last places: an entry
+        # within 1e-6 of the leaf's max |g + r| of the threshold may fall
+        # either way; a kept entry is one whose new residual is 0, which
+        # tells kept from dropped only where |g + r| is not ~0
+        scale = float(y.abs().max())
+        sure = ((y.abs() - thresh).abs() > 1e-6 * scale) & (y.abs() > 1e-6 * scale)
+        bad = ((gr != 0) != (wr != 0)) & sure
+        if bad.any():
+            both = (gr != 0) & (wr != 0)  # dropped by both: each residual is its own step's g + r
+            noise = float((gr - wr)[both].abs().max()) if both.any() else float("nan")
+            idx = bad.nonzero()[:4].tolist()
+            log(f"[shard] (a) compression: {'/'.join(names)}: {int(bad.sum())} masks differ; threshold "
+                f"{float(thresh):.6e}, max |g + r| {scale:.6e}, g + r noise between the steps {noise:.3e}; "
+                f"entries {[(i, float(y[tuple(i)]), float(gr[tuple(i)]), float(wr[tuple(i)])) for i in idx]}")
+        mism += int(bad.sum())
+        near += int((~sure).sum())
+    check(loss_err <= SHARD_FP32_REL and worst <= SHARD_FP32_REL and mism == 0,
+          ("(a) compression: the sharded compressed step against the unsharded one", loss_err, worst, mism))
+    out = {"sparse_plus_residual_exact": exact, "loss": float(m["loss"]), "unsharded_loss": float(wm["loss"]),
+           "loss_rel_err": loss_err, "worst_moment_leaf_rel_err": worst, "mask_mismatches_away_from_threshold": mism,
+           "entries_within_1e-6_of_a_threshold": near, "sharded_ms": s_ms, "unsharded_ms": w_ms,
+           "collectives": counted[0], "collective_bytes": counted[1], "launches": launches}
+    log(f"[shard] (a) compression, float32 at {cfg.n_layers} layers: loss {float(m['loss']):.5f} (unsharded "
+        f"{float(wm['loss']):.5f}); worst moment leaf {worst:.2e}; masks equal away from the thresholds "
+        f"({near} entries within 1e-6 of a leaf's max of one); sparse + residual exact; {s_ms:.1f} ms against {w_ms:.1f} ms; "
+        f"all-gathers {counted[0]['all-gather']}")
+    del want, new, placed, got, g, residual, cstate
+    return out, launches
+
+
+EXAMPLES_DEVICES = 4  # streaming_analytics' default: the mesh engine over cuda:0 repeated on one card
+
+
+def phase_examples(torch, np):
+    """The port's D4M examples on the card, each through the kernels and
+    again inside ``plain_versions()``: ``quickstart`` (the algebra, the
+    ``single`` cascade, the query namespace: ``sort_dedup`` and
+    ``merge_add``) and ``streaming_analytics --devices 4`` (the mesh
+    engine: ``sort_dedup`` and ``hier_cascade``; two checkpoints and the
+    restore drill, which the example checks).  Snapshots, top-k and
+    cascade counters bit-identical; the examples' own output goes to
+    stderr."""
+    from repro_torch import kernels
+    from repro_torch.examples import quickstart, streaming_analytics
+
+    def same(a, b, what):
+        if isinstance(a, dict):
+            for k in a:
+                same(a[k], b[k], f"{what}.{k}")
+        elif isinstance(a, (tuple, list)) and a and isinstance(a[0], np.ndarray):
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{what}[{i}]")
+        elif isinstance(a, np.ndarray):
+            check(a.shape == b.shape and np.array_equal(a.view(np.uint8), b.view(np.uint8)), (what, "bit-identical"))
+        elif not isinstance(a, float):  # rates and walls differ from run to run
+            check(a == b, (what, a, b))
+
+    runs = {
+        "quickstart": (lambda: quickstart.run(DEVICE), ("sort_dedup", "merge_add")),
+        "streaming_analytics": (lambda: streaming_analytics.run(DEVICE, devices=EXAMPLES_DEVICES),
+                                ("sort_dedup", "hier_cascade")),
+    }
+    out = {"launches": {}}
+    for name, (fn, need) in runs.items():
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            got = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        check(all(launches[k] > 0 for k in need), (name, "launches its kernels", launches))
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr), kernels.plain_versions():
+            plain = fn()
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t0
+        check(sum(read_counts().values()) == 0, (name, "no launch inside plain_versions()"))
+        same({k: v for k, v in got.items() if k != "rate"}, plain, name)
+        out[name] = {"wall_s": wall, "plain_wall_s": p_wall, "launches": launches,
+                     **{k: got[k] for k in ("kind", "cascades") if k in got},
+                     **({"rate": got["rate"], "plain_rate": plain["rate"], "updates": got["updates"],
+                         "drill": got["drill"]} if "rate" in got else {}),
+                     "snapshot_nnz": int(got["snapshot"][0].size)}
+        out["launches"][f"example_{name}"] = launches
+        log(f"[examples] {name}: {wall:.2f} s (plain_versions() {p_wall:.2f} s), launches {launches}; "
+            f"bit-identical inside plain_versions(): snapshot ({out[name]['snapshot_nnz']:,} entries), top-k, "
+            f"cascades {out[name].get('cascades')}")
     return out
 
 
@@ -3783,37 +3972,47 @@ def main() -> int:
             else f"nvidia-smi failed: {smi.stderr.strip()}")
     log(f"[device] {name}, torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
 
-    phase_build()
+    walls = {}
+
+    def timed_phase(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        return res
+
+    timed_phase("build", phase_build)
     parity_err = phase_parity(torch, np)
     ops_err = phase_parity_ops(torch, np)
     scatter_err = phase_parity_scatter(torch, np)
     torch.cuda.reset_peak_memory_stats()
-    lm = phase_lm(torch, np)
+    lm = timed_phase("lm", phase_lm, torch, np)
     free(torch)
-    train = phase_train(torch, np)
+    train = timed_phase("train", phase_train, torch, np)
     free(torch)
-    shard = phase_shard(torch, np)
+    shard = timed_phase("shard", phase_shard, torch, np)
     free(torch)
-    serve_shard = phase_shard_serve(torch, np)
+    serve_shard = timed_phase("shard_serve", phase_shard_serve, torch, np)
+    free(torch)
+    examples = timed_phase("examples", phase_examples, torch, np)
     free(torch)
     data = phase_data(torch, np)
-    sess8, main_run = phase_main(torch, np, data)
-    mesh = phase_mesh(torch, np, data, sess8)
+    sess8, main_run = timed_phase("main", phase_main, torch, np, data)
+    mesh = timed_phase("mesh", phase_mesh, torch, np, data, sess8)
     bf16_err = phase_bf16_ingest(torch, np, data)
     types_err, types_launches = phase_value_types(torch, np, data)
     read = phase_read_side(torch, np, sess8, data)
-    served = phase_serve(torch, np, data, sess8)
+    served = timed_phase("serve", phase_serve, torch, np, data, sess8)
     # the fleet's workers hold their own state: free this process's first
     fleet_want = sess8.snapshot()
     del sess8
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    fleet = phase_fleet(torch, np, data, fleet_want)
+    fleet = timed_phase("fleet", phase_fleet, torch, np, data, fleet_want)
     del fleet_want
     gc.collect()
     torch.cuda.empty_cache()
-    bench = phase_bench(torch, np)
+    bench = timed_phase("bench", phase_bench, torch, np)
     single_sess, single = phase_single(torch, np, data)
     times = phase_kernel_times(torch, np, data, main_run, single_sess)
     del single_sess
@@ -3827,7 +4026,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log(f"[embed] device memory held before the phase {torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    embed = phase_embed_grad(torch, np)
+    embed = timed_phase("embed", phase_embed_grad, torch, np)
     fl = embed["flushed"]
     embed_times = scatter_times(torch, np, fl.ids, fl.rows, int(fl.nnz), embed["rows_n"], "times")
     log(f"[embed] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -3840,7 +4039,7 @@ def main() -> int:
              "fleet": fleet["launches"], **mesh["launches"], "lm_serve": lm["launches"],
              "lm_train": train["launches"], "train_lm": train["train_lm"]["launches"],
              **shard["launches"],
-             **serve_shard["launches"],
+             **serve_shard["launches"], **examples["launches"],
              **{f"bench_{sec}": c for sec, c in bench["launches"].items()}}
     err = max(ops_err, main_run["err"], read["err"], single["err"], algebra["err"], served["err"],
               types_err, mesh["err"])
@@ -3986,6 +4185,9 @@ def main() -> int:
     log("[shard-metrics] " + json.dumps({"card": card, **{k: v for k, v in shard.items() if k != "launches"}}))
     log("[serve-shard-metrics] " + json.dumps({"card": card, **{k: v for k, v in serve_shard.items()
                                                                 if k != "launches"}}))
+    log("[examples-metrics] " + json.dumps({"card": card, **{k: v for k, v in examples.items()
+                                                             if k != "launches"}}))
+    log(f"[timing] phases, s: {walls}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({

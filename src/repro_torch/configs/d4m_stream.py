@@ -7,6 +7,7 @@ This is the *workload* config (stream shape + R-MAT parameters); the
 :meth:`WorkloadConfig.to_session` bridges the two.
 """
 import dataclasses
+import warnings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +34,21 @@ class WorkloadConfig:
         )
         kw.update(overrides)
         return StreamConfig(**kw)
+
+
+def __getattr__(name):
+    # The reference's backwards-compatible alias: ``StreamConfig`` from here
+    # hands back WorkloadConfig, with the reference's warning.
+    if name == "StreamConfig":
+        warnings.warn(
+            "repro.configs.d4m_stream.StreamConfig is deprecated: the "
+            "workload config here is WorkloadConfig; the session config is "
+            "repro.d4m.StreamConfig",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return WorkloadConfig
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 CONFIG = WorkloadConfig()

@@ -31,6 +31,7 @@ are transfers, not collectives, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -97,6 +98,7 @@ class Mesh:
         self.collectives: Dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
         #: one device's result bytes of those collectives, by kind
         self.collective_bytes: Dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
+        self.counting = True
 
     @classmethod
     def over(cls, kind, n: int, axis: str = "data", repeat: bool = False) -> "Mesh":
@@ -125,9 +127,21 @@ class Mesh:
         self.collectives = dict.fromkeys(COLLECTIVES, 0)
         self.collective_bytes = dict.fromkeys(COLLECTIVES, 0)
 
+    @contextlib.contextmanager
+    def uncounted(self):
+        """Collectives run inside are not counted (a pass that only the
+        one-shard-at-a-time executor runs)."""
+        saved, self.counting = self.counting, False
+        try:
+            yield
+        finally:
+            self.counting = saved
+
     def count(self, kind: str, result: torch.Tensor) -> None:
         """Count one collective of ``kind`` whose result on a device is
         ``result`` (its bytes go to :attr:`collective_bytes`)."""
+        if not self.counting:
+            return
         self.collectives[kind] += 1
         self.collective_bytes[kind] += result.numel() * result.element_size()
 
@@ -252,6 +266,228 @@ class Mesh:
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return f"Mesh({self.shape}, devices={[str(d) for d in self.device_list]})"
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives over one model group (the sharded training step)
+# ---------------------------------------------------------------------------
+# A head-split training step runs one data shard's model group at a time as
+# the SPMD program would: each device holds a copy of the values that are
+# replicated over "model" (the residual stream, norms, the loss) and its own
+# part of the split ones (its heads, FFN columns, experts, vocabulary block).
+# Every device's copy of the loss is seeded with 1 in the backward, so the
+# collectives between the two kinds of value take Megatron's pair:
+# :class:`_SumToReplicas` ("g": the partial outputs of a row-split block
+# summed; backward the identity) and :class:`_CopyToSplit` ("f": the
+# identity before a column-split block; backward the sum of the parts'
+# gradients).  A collective inside the split region keeps its own transpose
+# (:class:`_GroupPsum`, :class:`_GroupAllGather`); one from the split region
+# into the replicated one that gathers (the logits' vocabulary blocks) takes
+# each device's own block back (:class:`_GatherToReplicas`).  Each counts on
+# the mesh every time it runs, its backward included; a checkpointed
+# layer's recompute runs (and counts) the forward again.
+
+def _outputs_on(acc: torch.Tensor, devs) -> Tuple[torch.Tensor, ...]:
+    """``acc`` on each of ``devs``, a tensor of its own each (a repeated
+    device gets a copy)."""
+    out, used = [], set()
+    for dev in devs:
+        same = torch.device(dev) == acc.device
+        out.append(acc if same and acc.device not in used else acc.to(dev, copy=True))
+        used.add(torch.device(dev))
+    return tuple(out)
+
+
+def _group_sum(xs, dev) -> torch.Tensor:
+    acc = xs[0].to(dev)
+    for x in xs[1:]:
+        acc = acc + x.to(dev, non_blocking=True)
+    return acc
+
+
+def _sum_on_each(mesh, devs, xs, like=None):
+    """The group's sum on every device (one counted ``all-reduce``);
+    ``like`` gives the shape, dtype and device of a part whose gradient is
+    ``None``."""
+    if like is not None:
+        xs = [torch.zeros(s, dtype=t, device=d) if x is None else x for x, (s, t, d) in zip(xs, like)]
+    out = _outputs_on(_group_sum(xs, devs[0]), devs)
+    mesh.count("all-reduce", out[0])
+    return out
+
+
+def _like(xs):
+    return [(x.shape, x.dtype, x.device) for x in xs]
+
+
+class _SumToReplicas(torch.autograd.Function):
+    """g: the group's sum on every device (one ``all-reduce``); backward:
+    each part takes its own device's gradient."""
+
+    @staticmethod
+    def forward(ctx, mesh, devs, *xs):
+        return _sum_on_each(mesh, devs, xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(grads)
+
+
+class _CopyToSplit(torch.autograd.Function):
+    """f: the identity; backward: the sum of the devices' gradients on each
+    of them (one ``all-reduce``)."""
+
+    @staticmethod
+    def forward(ctx, mesh, devs, *xs):
+        ctx.mesh, ctx.devs, ctx.like = mesh, devs, _like(xs)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + _sum_on_each(ctx.mesh, ctx.devs, grads, ctx.like)
+
+
+class _GroupPsum(torch.autograd.Function):
+    """A psum inside the split region: the sum on every device, forward and
+    backward (an ``all-reduce`` each way)."""
+
+    @staticmethod
+    def forward(ctx, mesh, devs, *xs):
+        ctx.mesh, ctx.devs, ctx.like = mesh, devs, _like(xs)
+        return _sum_on_each(mesh, devs, xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + _sum_on_each(ctx.mesh, ctx.devs, grads, ctx.like)
+
+
+class _GroupAllGather(torch.autograd.Function):
+    """An all-gather inside the split region (``dim``); backward its
+    transpose, a ``reduce-scatter``: each device's block of the sum of the
+    gathered gradients."""
+
+    @staticmethod
+    def forward(ctx, mesh, devs, dim, *xs):
+        ctx.mesh, ctx.devs, ctx.dim = mesh, devs, dim
+        ctx.sizes = [x.shape[dim] for x in xs]
+        out = _outputs_on(torch.cat([x.to(devs[0]) for x in xs], dim), devs)
+        mesh.count("all-gather", out[0])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = _group_sum([g for g in grads if g is not None], ctx.devs[0])
+        parts = torch.split(total, ctx.sizes, ctx.dim)
+        out = tuple(p.to(dev, copy=True) for p, dev in zip(parts, ctx.devs))
+        ctx.mesh.count("reduce-scatter", out[0])
+        return (None, None, None) + out
+
+
+class _GatherToReplicas(torch.autograd.Function):
+    """An all-gather (``dim``) from the split region into the replicated one
+    (the loss); backward: each device keeps its own block of its own
+    gradient (no collective)."""
+
+    @staticmethod
+    def forward(ctx, mesh, devs, dim, *xs):
+        ctx.dim = dim
+        ctx.sizes = [x.shape[dim] for x in xs]
+        out = _outputs_on(torch.cat([x.to(devs[0]) for x in xs], dim), devs)
+        mesh.count("all-gather", out[0])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = []
+        for k, g in enumerate(grads):
+            lo = sum(ctx.sizes[:k])
+            out.append(None if g is None else g.narrow(ctx.dim, lo, ctx.sizes[k]))
+        return (None, None, None) + tuple(out)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """f from one device's value: ``x`` on each of ``devs``; backward the sum
+    of their gradients on ``x``'s device (one ``all-reduce``)."""
+
+    @staticmethod
+    def forward(ctx, mesh, devs, x):
+        ctx.mesh, ctx.dev = mesh, x.device
+        return tuple(x.view_as(x) if torch.device(d) == x.device else x.to(d) for d in devs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        acc = _group_sum([g for g in grads if g is not None], ctx.dev)
+        ctx.mesh.count("all-reduce", acc)
+        return None, None, acc
+
+
+class _SumToOne(torch.autograd.Function):
+    """g onto one device: the parts' sum on the first part's device (one
+    ``all-reduce``); backward: each part takes that gradient."""
+
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.devs = [x.device for x in xs]
+        acc = _group_sum(xs, xs[0].device)
+        mesh.count("all-reduce", acc)
+        return acc
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + tuple(g.to(d) for d in ctx.devs)
+
+
+class ModelGroup:
+    """The collectives over one model group of ``mesh`` (flat device
+    indices ``idx``, in "model" order), on lists of one tensor a group
+    device, differentiable and counted on ``mesh`` (see above).  Groups of
+    one run nothing and count nothing."""
+
+    def __init__(self, mesh: "Mesh", idx: Sequence[int]):
+        self.full = mesh
+        self.idx = list(idx)
+        self.devs = [mesh.device_list[i] for i in self.idx]
+        self.size = len(self.idx)
+
+    def _run(self, fn, xs, *extra):
+        if self.size == 1:
+            return list(xs)
+        return list(fn.apply(self.full, self.devs, *extra, *xs))
+
+    def to_replicas(self, xs) -> List[torch.Tensor]:
+        """g: the partial outputs summed onto every device."""
+        return self._run(_SumToReplicas, xs)
+
+    def to_split(self, xs) -> List[torch.Tensor]:
+        """f: replicated values entering split compute."""
+        return self._run(_CopyToSplit, xs)
+
+    def gather_to_replicas(self, xs, dim: int) -> List[torch.Tensor]:
+        return self._run(_GatherToReplicas, xs, dim)
+
+    # ``serving``'s mesh calls inside the split region (the axis is "model")
+    def psum(self, xs, axis=None) -> List[torch.Tensor]:
+        return self._run(_GroupPsum, xs)
+
+    def all_gather(self, xs, axis=None, dim: int = 0) -> List[torch.Tensor]:
+        return self._run(_GroupAllGather, xs, dim)
+
+
+def copy_to_group(mesh: Optional["Mesh"], x: torch.Tensor, devs) -> List[torch.Tensor]:
+    """``x`` on each of ``devs`` (f: its gradient is their sum, one counted
+    ``all-reduce`` where there are several)."""
+    if mesh is None or len(devs) == 1:
+        return [x.to(d) for d in devs]
+    return list(_CopyToGroup.apply(mesh, list(devs), x))
+
+
+def sum_to_one(mesh: Optional["Mesh"], parts) -> torch.Tensor:
+    """The parts' sum on the first part's device (g onto one device: one
+    counted ``all-reduce`` where there are several; its gradient goes to
+    every part unchanged)."""
+    if mesh is None or len(parts) == 1:
+        return _group_sum(parts, parts[0].device)
+    return _SumToOne.apply(mesh, *parts)
 
 
 @dataclasses.dataclass(frozen=True)

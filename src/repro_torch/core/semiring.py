@@ -40,6 +40,12 @@ class Semiring:
         """``one`` as a value of ``dtype`` (see :func:`as_value`)."""
         return as_value(self.one, dtype)
 
+    def add_identity(self, dtype: torch.dtype, device=None) -> torch.Tensor:
+        """``zero`` as a 0-d tensor of ``dtype`` (the reference's
+        ``jnp.asarray(zero, dtype)``; an integer type saturates as
+        :meth:`zero_as` does), on ``device`` (the CPU unless given)."""
+        return torch.tensor(self.zero_as(dtype), dtype=dtype, device=device)
+
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return f"Semiring({self.name})"
 

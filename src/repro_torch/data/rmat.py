@@ -66,3 +66,21 @@ def rmat_edges_torch(
         src = src * 2 + (r >= a + b)
         dst = dst * 2 + (((r >= a) & (r < a + b)) | (r >= a + b + c))
     return src, dst
+
+
+def stream_tensor(
+    gen_or_seed, n_groups: int, group_size: int, scale: int, device=None, **kw
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A ``[n_groups, group_size]`` stream (src, dst int32; val float32
+    ones) for ingesting in one pass, drawn by :func:`rmat_edges_torch`
+    with ``gen_or_seed`` (a torch ``Generator``, on whose device the
+    stream lies, or an int seed for a generator on ``device``: ``cuda``
+    unless given).  ``kw``: the quadrant probabilities ``a``, ``b``,
+    ``c``."""
+    gen = gen_or_seed
+    if not isinstance(gen, torch.Generator):
+        from repro_torch.device import resolve_device
+
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(int(gen_or_seed))
+    src, dst = rmat_edges_torch(gen, (n_groups, group_size), scale, **kw)
+    return src, dst, torch.ones((n_groups, group_size), dtype=torch.float32, device=gen.device)

@@ -43,7 +43,7 @@ import os
 import sys
 import time
 import traceback
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -54,9 +54,10 @@ from repro_torch.launch import shapes as SH
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import sharding as SD
+from repro_torch.models import tp_train as TT
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, compression
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -75,12 +76,17 @@ def _n_moe_layers(cfg: ModelConfig) -> int:
 
 
 def step_collectives(
-    cfg: ModelConfig, mesh: Mesh, strategy: str, n_micro: int, batch: int, seq: int
+    cfg: ModelConfig, mesh: Mesh, strategy: str, n_micro: int, batch: int, seq: int,
+    comp_cfg: Optional[compression.CompressionConfig] = None, first_pass: Optional[Dict[str, Dict[str, int]]] = None,
 ) -> Tuple[Dict[str, int], Dict[str, int]]:
     """The collectives one ``sharded_train_step`` of a ``[batch, seq]``
     batch in ``n_micro`` microbatches issues over ``mesh`` under
-    ``strategy``: (calls by kind, one device's result bytes by kind), in
-    the order the step issues them (see its docstring)."""
+    ``strategy`` (with ``comp_cfg``'s compression): (calls by kind, one
+    device's result bytes by kind), in the order the step issues them (see
+    its docstring).  The local MoE path's gradient-free first pass (an
+    artifact of running the data shards in turn, :func:`executor_terms`)
+    is not counted; ``first_pass``, a dict, receives its collectives as
+    ``{"calls": ..., "bytes": ...}``."""
     calls = dict.fromkeys(COLLECTIVES, 0)
     nbytes = dict.fromkeys(COLLECTIVES, 0)
 
@@ -94,45 +100,39 @@ def step_collectives(
         specs = SD.param_specs(cfg, mesh, params, plan)
         bx = SD.batch_axes(cfg, mesh, plan)
         ep = ep_axis is not None and strategy in ("ep", "ep_fsdp")
+        split = ST.head_split(mesh, bx)
     baxes = axis_tuple(bx)
     D = mesh.axis_size(baxes)
-    dtype = TF.compute_dtype(cfg)
     named = [(names, leaf, spec) for (names, leaf), (_, spec) in
              zip(ST._named_leaves(params), ST._named_leaves(specs))]
-
-    # the gathers at use, once a step
-    for names, leaf, spec in named:
-        if ep and ST._is_expert(names):
-            continue
-        dt = dtype if (cast and names[0] == "stages" and leaf.dtype == torch.float32) else leaf.dtype
-        shape = list(block_shape(mesh, spec, tuple(leaf.shape)))
-        for d in range(len(spec)):
-            k = mesh.axis_size(spec.dim_axes(d)) if spec.dim_axes(d) else 1
-            if k > 1:
-                shape[d] *= k
-                add("all-gather", shape, dt)
-
-    # each microbatch: its data shards' rows, the shards of padding alone idle
     lo, hi = ST.shard_rows(batch // n_micro, D)
     live = [h - l for l, h in zip(lo, hi) if h > l]
     n_moe = _n_moe_layers(cfg)
-    tp = mesh.shape.get("model", 1)
-    for _ in range(n_micro):
-        if D > 1:
-            add("all-reduce", (2,), torch.int32)  # the valid-label counts
-        if ep and n_moe and tp > 1:
-            for rows in live:  # once a layer: the recompute stops before the combine (moe._group_psum)
-                add("all-reduce", (rows * seq, cfg.d_model), dtype, n_moe)  # the experts' outputs
-                add("all-reduce", (), torch.int64, n_moe)  # the dropped count
-        if ep and n_moe and D > 1:  # the loads over each data axis, a MoE layer (moe.EPLoads)
-            for a in baxes:
-                if mesh.shape[a] > 1:
-                    add("all-reduce", (cfg.moe.n_experts // tp,), torch.float32, n_moe)
+    if split:
+        extra = {"calls": dict.fromkeys(COLLECTIVES, 0), "bytes": dict.fromkeys(COLLECTIVES, 0)}
+
+        def add_first(kind, shape, dtype, times=1):
+            extra["calls"][kind] += times
+            extra["bytes"][kind] += times * math.prod(shape) * _itemsize(dtype)
+
+        lplans = _head_split_schedule(cfg, mesh, named, ep, live, n_micro, seq, D, add, add_first)
+        if first_pass is not None:
+            first_pass.update(extra)
+    else:
+        lplans = None
+        _leader_schedule(cfg, mesh, named, cast, ep, live, n_micro, seq, D, add)
+    if ep and n_moe and D > 1:  # the loads over each data axis, a MoE layer a microbatch (moe.EPLoads)
+        for a in baxes:
+            if mesh.shape[a] > 1:
+                add("all-reduce", (cfg.moe.n_experts // mesh.shape["model"],), torch.float32, n_moe * n_micro)
 
     # after the microbatches
     if D > 1:
         add("all-reduce", (n_micro, 2), torch.float32)  # the losses
-    for names, leaf, spec in named:
+    for li, (names, leaf, spec) in enumerate(named):
+        if split:
+            _head_split_reduce(mesh, baxes, leaf, spec, lplans[li], add)
+            continue
         block = block_shape(mesh, spec, tuple(leaf.shape))
         expert = ep and ST._is_expert(names)
         shape = []
@@ -152,9 +152,186 @@ def step_collectives(
         rest = tuple(a for a in baxes if a not in used)
         if rest and mesh.axis_size(rest) > 1:
             add("all-reduce", block, torch.float32)
+    if comp_cfg is not None and comp_cfg.enabled:  # each threshold's magnitudes
+        for names, leaf, spec in named:
+            size = math.prod(leaf.shape)
+            if size >= comp_cfg.min_size and any(mesh.shape[a] > 1 for a in spec.axes):
+                add("all-gather", (math.prod(block_shape(mesh, spec, tuple(leaf.shape)))
+                                   * math.prod(mesh.shape[a] for a in spec.axes),), torch.float32)
     if mesh.size > 1:
         add("all-reduce", (), torch.float32)  # the global norm
     return calls, nbytes
+
+
+def _leader_schedule(cfg, mesh, named, cast, ep, live, n_micro, seq, D, add):
+    """Gather-at-use's terms before the reductions ("fsdp_flat",
+    "ep_fsdp"): the gathers once a step, each microbatch's counts and EP
+    combines."""
+    dtype = TF.compute_dtype(cfg)
+    for names, leaf, spec in named:
+        if ep and ST._is_expert(names):
+            continue
+        dt = dtype if (cast and names[0] == "stages" and leaf.dtype == torch.float32) else leaf.dtype
+        shape = list(block_shape(mesh, spec, tuple(leaf.shape)))
+        for d in range(len(spec)):
+            k = mesh.axis_size(spec.dim_axes(d)) if spec.dim_axes(d) else 1
+            if k > 1:
+                shape[d] *= k
+                add("all-gather", shape, dt)
+    n_moe = _n_moe_layers(cfg)
+    tp = mesh.shape.get("model", 1)
+    router_dt = dtype if cast else torch.float32
+    for _ in range(n_micro):
+        if D > 1:
+            add("all-reduce", (2,), torch.int32)  # the valid-label counts
+        if ep and n_moe and tp > 1:
+            for rows in live:  # once a layer: the recompute stops before the combine (moe._group_psum)
+                add("all-reduce", (rows * seq, cfg.d_model), dtype, n_moe)  # the experts' outputs
+                add("all-reduce", (), torch.int64, n_moe)  # the dropped count
+                # the combine's backward (f): the tokens' and the router's gradients
+                add("all-reduce", (rows * seq, cfg.d_model), dtype, n_moe)
+                add("all-reduce", (cfg.d_model, cfg.moe.n_experts), router_dt, n_moe)
+
+
+def _largest_divisor(n: int, cap: int) -> int:
+    c = min(cap, n)
+    while n % c:
+        c -= 1
+    return c
+
+
+def _head_split_schedule(cfg, mesh, named, ep, live, n_micro, seq, D, add, add_first):
+    """A head-split step's terms before the reductions ("tp", "ep"): the
+    gathers at use once a step; each microbatch's counts; each live data
+    shard's group pass (``models.tp_train``: the forward's sums, gathers
+    and psums, twice where a checkpointed layer's recompute reaches them,
+    the backward's f and transposes once), after a gradient-free first
+    pass of every live shard on the local MoE path over several of them.
+    Returns the leaves' :class:`tp_train.LeafPlan` list."""
+    dtype = TF.compute_dtype(cfg)
+    lay = TT.train_layout(cfg, mesh)
+    lplans = TT.leaf_plans(lay, mesh, [(names, tuple(leaf.shape), spec) for names, leaf, spec in named], ep)
+    for (names, leaf, spec), lp in zip(named, lplans):
+        cur = list(block_shape(mesh, spec, tuple(leaf.shape)))
+        for d, axes in lp.gathers:
+            cur[d] *= mesh.axis_size(axes)
+            add("all-gather", cur, leaf.dtype)
+    tp = lay.tp
+    d = cfg.d_model
+    two_pass = cfg.moe is not None and len(live) > 1 and not ep
+    s_text = seq - (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+
+    def group(r: int, grad: bool):
+        """One data shard of ``r`` rows over its model group."""
+        if tp == 1:
+            return
+        put = add if grad else add_first
+        twice = 2 if grad else 1  # a checkpointed layer's recompute
+
+        def fwd(shape, dt, redone: bool):
+            put("all-reduce", shape, dt, twice if redone else 1)
+
+        def bwd(kind, shape, dt):
+            if grad:
+                put(kind, shape, dt)
+
+        def attn(rows_s, redone, src=None):  # f (and f of a cross-attention's source), then g
+            bwd("all-reduce", (r, rows_s, d), dtype)
+            if src is not None:
+                bwd("all-reduce", (r, src, d), dtype)
+            fwd((r, rows_s, d), dtype, redone)
+
+        def ffn(rows_s, redone):
+            bwd("all-reduce", (r, rows_s, d), dtype)
+            fwd((r, rows_s, d), dtype, redone)
+
+        def layer(g, S, has_ffn, remat):
+            if g.kind == "ssm":
+                if lay.ssm_tp:
+                    s = cfg.ssm
+                    conv = s.expand * d + 2 * s.n_groups * s.d_state
+                    bwd("all-reduce", (r, S, d), dtype)  # f
+                    if lay.conv_tp:
+                        put("all-gather", (r, S, conv), dtype, twice if remat else 1)
+                        bwd("reduce-scatter", (r, S, conv // tp), dtype)
+                    put("all-reduce", (r, S, 1), torch.float32, twice if remat else 1)  # the gated norm's sums
+                    bwd("all-reduce", (r, S, 1), torch.float32)
+                    fwd((r, S, d), dtype, remat and has_ffn)
+            else:
+                attn(S, remat and has_ffn)
+            if not has_ffn:
+                return
+            ffn(S, False)
+            if g.has_moe and not ep:
+                bwd("all-reduce", (r * S, cfg.moe.top_k), torch.float32)  # f of the gates
+
+        fwd((r, s_text, d), dtype, False)  # the vocabulary-parallel embedding
+        plan_ = TF.build_plan(cfg)
+        if cfg.encoder_layers:
+            T = cfg.encoder_tokens
+            for _ in range(cfg.encoder_layers):
+                attn(T, False)
+                ffn(T, False)
+            (st,) = plan_
+            for _ in range(st.reps):
+                attn(seq, True)
+                attn(seq, True, src=T)
+                ffn(seq, False)
+        else:
+            for st in plan_:
+                for _ in range(st.reps):
+                    for g in st.specs:
+                        layer(g, seq, g.has_moe or cfg.d_ff > 0, True)
+
+        def loss(S):
+            bwd("all-reduce", (r, S, d), dtype)  # f: the head's input
+            c = _largest_divisor(S, 1024)
+            vb = -(-cfg.vocab_padded // tp) * tp
+            put("all-gather", (r, c, vb), dtype, (S // c) * twice)
+
+        loss(s_text)
+        if cfg.mtp_depth:
+            fwd((r, s_text - 1, d), dtype, False)  # the MTP embedding
+            layer(TF.GroupSpec("attn", True, False), seq - 1, cfg.d_ff > 0, False)
+            loss(seq - 1)
+
+    for _ in range(n_micro):
+        if D > 1:
+            add("all-reduce", (2,), torch.int32)  # the valid-label counts
+        if two_pass:
+            for r in live:
+                group(r, grad=False)
+        for r in live:
+            group(r, grad=True)
+    return lplans
+
+
+def _head_split_reduce(mesh, baxes, leaf, spec, lp, add) -> None:
+    """A head-split step's reduction of one leaf's gradient
+    (``steps._reduce_head_split``)."""
+    block = list(block_shape(mesh, spec, tuple(leaf.shape)))
+    cur = list(block)
+    for d, _ in lp.gathers:
+        cur[d] = leaf.shape[d]
+    if lp.reduce == "psum":
+        add("all-reduce", cur, torch.float32)
+    if lp.reduce != "none" and lp.mdim is not None:
+        cur[lp.mdim] = block[lp.mdim]
+    gathered = dict(lp.gathers)
+    used = ()
+    for d in range(len(spec)):
+        inb = tuple(a for a in spec.dim_axes(d) if a in baxes)
+        if not inb:
+            continue
+        used += inb
+        if d not in gathered:
+            continue
+        cur[d] = block[d]
+        if mesh.axis_size(inb) > 1:
+            add("reduce-scatter", cur, torch.float32)
+    rest = tuple(a for a in baxes if a not in used)
+    if rest and mesh.axis_size(rest) > 1:
+        add("all-reduce", cur, torch.float32)
 
 
 def serve_param_gathers(lay, mesh, named_specs, cast: bool):
@@ -301,7 +478,8 @@ def executor_terms(cfg: ModelConfig, n_data: int, n_micro: int, batch: int, stra
     "fsdp_flat"), a gradient-free first forward of every data shard a
     microbatch (``moe.ShardStats``), and each MoE layer's load and
     importance (``[2, E]`` float32 a shard) handed from one shard's run to
-    the next."""
+    the next.  (:func:`plan_cell` adds the first pass's collectives, which
+    the step runs uncounted, as ``first_pass_collectives``.)"""
     lo, hi = ST.shard_rows(batch // n_micro, n_data)
     live = sum(1 for a, b in zip(lo, hi) if b > a)
     first_pass = cfg.moe is not None and live > 1 and strategy not in ("ep", "ep_fsdp")
@@ -338,11 +516,13 @@ def plan_cell(arch: str, shape_name: str, mesh: Mesh, strategy: str = "tp") -> d
             bspecs = SD.batch_specs(cfg, mesh, plan)
             memory["batch_bytes_per_device"] = tree_bytes_per_device(
                 mesh, binputs, {k: bspecs[k] for k in binputs})
-            calls, nbytes = step_collectives(cfg, mesh, strategy, n_micro, shape.batch, shape.seq)
+            first: dict = {}
+            calls, nbytes = step_collectives(cfg, mesh, strategy, n_micro, shape.batch, shape.seq, first_pass=first)
             collectives = {"calls": calls, "bytes": nbytes,
                            "source": "launch.dryrun.step_collectives (sharded_train_step's schedule)"}
-            extra = {"n_micro": n_micro,
-                     "executor_only": executor_terms(cfg, mesh.axis_size(bx), n_micro, shape.batch, strategy)}
+            ex = executor_terms(cfg, mesh.axis_size(bx), n_micro, shape.batch, strategy)
+            ex["first_pass_collectives"] = first.get("calls", dict.fromkeys(COLLECTIVES, 0))
+            extra = {"n_micro": n_micro, "executor_only": ex}
         elif shape.kind == "prefill":
             binputs = SH.prefill_inputs(cfg, shape)
             bspecs = SD.batch_specs(cfg, mesh)

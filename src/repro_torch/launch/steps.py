@@ -18,10 +18,12 @@ import contextlib
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.mesh import Mesh, P, Sharded, axis_tuple, device_put
 from repro_torch.models import moe as MOE
+from repro_torch.models import tp_train as TT
 from repro_torch.models import serving as SV
 from repro_torch.models import sharding as SD
 from repro_torch.models import transformer as TF
@@ -72,13 +74,13 @@ def make_train_step(
     With ``dp_spec`` (the data-parallel mesh axes the batch shards over,
     ``sharding.batch_axes``) the step runs over a mesh: ``state`` is placed
     there (:func:`place_train_state`) and the step is
-    :func:`sharded_train_step`'s.  The reference pins the microbatch
+    :func:`sharded_train_step`'s (with compression, ``state["residual"]``
+    placed by the param specs).  The reference pins the microbatch
     reshape's sharding with it; the port runs each data shard's slice of
-    every microbatch on that shard's device."""
+    every microbatch on that shard's devices."""
     if dp_spec is not None:
-        if comp_cfg.enabled:
-            raise NotImplementedError("top-k compression of a sharded step's gradients is not ported")
-        return lambda state, batch: sharded_train_step(cfg, opt_cfg, n_micro, ep_axis, dp_spec, state, batch)
+        return lambda state, batch: sharded_train_step(cfg, opt_cfg, n_micro, ep_axis, dp_spec, state, batch,
+                                                       comp_cfg)
     grad_fn = value_and_grad(cfg, ep_axis)
 
     def train_step(state, batch):
@@ -146,13 +148,15 @@ def strategy_context(mesh: Mesh, strategy: str):
 
 
 def place_train_state(state, cfg: ModelConfig, mesh: Mesh, strategy: str = "tp"):
-    """``state`` (``{"params", "opt"}``) placed over ``mesh`` by
+    """``state`` (``{"params", "opt"[, "residual"]}``) placed over ``mesh`` by
     ``sharding.param_specs``/``opt_specs`` of ``strategy``: every device
     gets buffers of its own, uneven splits padded as GSPMD pads them."""
     specs = {
         "params": SD.param_specs(cfg, mesh, state["params"], strategy),
         "opt": SD.opt_specs(cfg, mesh, state["opt"], strategy),
     }
+    if "residual" in state:  # compression's error feedback lies as the params do
+        specs["residual"] = SD.param_specs(cfg, mesh, state["residual"], strategy)
     return device_put(state, SD.shardings_of(mesh, specs), copy=True, pad=True)
 
 
@@ -177,9 +181,9 @@ def _is_expert(names) -> bool:
 
 class _Plan:
     """Where a sharded step's work lies on its mesh: the data shards (one
-    a block of the batch axes), each run on its first device (the
-    leader), and for the expert-parallel path each data shard's model
-    group."""
+    a block of the batch axes), each with its first device (the leader)
+    and its model group (the devices that share its data coordinates: a
+    head-split step's and the expert-parallel path's)."""
 
     def __init__(self, mesh: Mesh, dp_spec, ep_axis):
         self.mesh = mesh
@@ -188,9 +192,9 @@ class _Plan:
         self.leaders = [self.shard_of.index(c) for c in range(self.n_data)]
         self.ep = ep_axis is not None and MOE.EP_CONTEXT["mesh"] is not None
         self.ep_axis = ep_axis
-        if self.ep:
-            by_dev = {g[0]: g for g in mesh.groups(ep_axis)}
-            self.groups = [next(g for g in by_dev.values() if lead in g) for lead in self.leaders]
+        # each data shard's model group (its leader alone without a "model" axis)
+        by_dev = mesh.groups("model") if "model" in mesh.shape else [[i] for i in range(mesh.size)]
+        self.groups = [next(g for g in by_dev if lead in g) for lead in self.leaders]
 
     def device(self, c: int) -> torch.device:
         return self.mesh.device_list[self.leaders[c]]
@@ -318,57 +322,170 @@ def _reduce_grads(plan: _Plan, named, accs):
     return out
 
 
-def sharded_train_step(cfg: ModelConfig, opt_cfg, n_micro: int, ep_axis, dp_spec, state, batch):
+def head_split(mesh: Mesh, batch_axes) -> bool:
+    """Whether a sharded step over ``mesh`` computes head-split: a "model"
+    axis that is not a batch axis, under a plan that does not cast stage
+    weights for ZeRO-3 gathers ("tp" and "ep"; "fsdp_flat" and "ep_fsdp"
+    gather at use)."""
+    return "model" in mesh.shape and "model" not in axis_tuple(batch_axes) and not TF.ACT_CTX["cast_params"]
+
+
+def sharded_train_step(cfg: ModelConfig, opt_cfg, n_micro: int, ep_axis, dp_spec, state, batch,
+                       comp_cfg: compression.CompressionConfig = compression.CompressionConfig()):
     """One training step over the mesh ``state`` is placed on.
 
-    Schedule: every split param leaf is gathered once (``all-gather`` a
-    split dimension; ``ACT_CTX["cast_params"]`` casts float32 stage weights
-    to the compute dtype before); for each microbatch (the reference's
-    ``[n_micro, mb, S]`` reshape) each data shard runs its ``mb / D`` rows
-    on its leader device, forward and backward, its gradients summed into
-    float32 accumulators of its own (the expert-parallel path: each model
-    shard's expert blocks on its own device, one ``psum`` over ``model`` a
-    MoE layer); the microbatch's valid-label counts come from one ``psum``
-    over the batch axes.  An MoE architecture over several data shards
-    reads across them: on the local path a gradient-free first pass over
-    the shards (``moe.ShardStats``) gives each shard the dispatch order and
-    aux statistics of the whole microbatch, handed from one shard's run to
-    the next (an artifact of running the shards in turn: no collective of
-    the reference's program, none counted); on the expert-parallel path
-    each shard's one pass records its loads (``moe.EPLoads``), summed after
-    the microbatch by one ``psum`` a data axis a MoE layer, whose aux
-    value the step adds to the loss.  After the microbatches each leaf's
-    gradient is reduced to its spec (:func:`_reduce_grads`), the global
-    norm is one ``psum`` over the whole mesh, the losses one ``psum`` over
-    the batch axes, and AdamW steps each block once a device.  Collectives
-    over groups of one are not run; the expert combine's ``psum`` counts
-    each time it runs, a checkpointed layer's recompute included.
+    "tp" and "ep" (:func:`head_split`): for each microbatch (the
+    reference's ``[n_micro, mb, S]`` reshape) each data shard's ``mb / D``
+    rows run over its model group, head-split (``models.tp_train``: each
+    model shard its heads, FFN columns, experts and vocabulary block; an
+    ``all-reduce`` over "model" after the embedding, ``wo``, ``wd`` and
+    ``out_proj`` and, in the backward, before each split block; each loss
+    chunk's logits gathered by ``all-gather``); the leaves whose blocks do
+    not line up are gathered once a step.  Each device's gradients are
+    summed into float32 accumulators of its own.  "fsdp_flat" and
+    "ep_fsdp" gather every split leaf once a step (``all-gather`` a split
+    dimension; ``ACT_CTX["cast_params"]`` casts float32 stage weights to
+    the compute dtype first) and run each data shard's rows on its leader
+    device (the expert-parallel path: each model shard's expert blocks on
+    its own device, one ``psum`` over ``model`` a MoE layer, its backward
+    an ``all-reduce`` of the tokens' and the router's gradients).
+
+    The microbatch's valid-label counts come from one ``psum`` over the
+    batch axes.  An MoE architecture over several data shards reads across
+    them: on the local path a gradient-free first pass over the shards
+    (``moe.ShardStats``) gives each shard the dispatch order and aux
+    statistics of the whole microbatch (an artifact of running the shards
+    in turn); on the expert-parallel path each shard's one pass records
+    its loads (``moe.EPLoads``), summed after the microbatch by one
+    ``psum`` a data axis a MoE layer.  After the microbatches each leaf's
+    gradient is reduced to its spec (over "model" where a head-split shard
+    read a part of a leaf it does not own, then over the batch axes), the
+    losses are one ``psum`` over the batch axes, top-k compression
+    (``comp_cfg``) finds each compressed leaf's threshold from an
+    ``all-gather`` of its magnitudes, the global norm is one ``psum`` over
+    the whole mesh, and AdamW steps each block once a device.  Collectives
+    over groups of one are not run; every collective counts each time it
+    runs, a checkpointed layer's recompute included.
     ``launch.dryrun.step_collectives`` is this schedule as a formula."""
     params_sh, opt_sh = state["params"], state["opt"]
     named = _named_leaves(params_sh)
     mesh = named[0][1].sharding.mesh
     plan = _Plan(mesh, dp_spec, ep_axis)
-    D = plan.n_data
-    gathered = _gather_params(plan, cfg, named, TF.ACT_CTX["cast_params"])
-    trees = [_shard_params(plan, params_sh, named, gathered, c) for c in range(D)]
+    split = head_split(mesh, plan.batch_axes)
 
     def whole(x):
         return None if x is None else (x.gather() if isinstance(x, Sharded) else x)
 
     tokens, labels, fe = whole(batch["tokens"]), whole(batch["labels"]), whole(batch.get("frontend"))
     mb = tokens.shape[0] // n_micro
+    if split:
+        accs, parts = _head_split_micro(cfg, plan, named, params_sh, tokens, labels, fe, n_micro, mb)
+        grads = _reduce_head_split(plan, named, accs)
+    else:
+        accs, parts = _leader_micro(cfg, plan, named, params_sh, tokens, labels, fe, n_micro, mb, ep_axis)
+        grads = _reduce_grads(plan, named, accs)
+    del accs
+
+    # the losses: one psum over the batch axes of each data shard's part
+    lm = [torch.stack(parts[plan.shard_of[i]]).to(mesh.device_list[i]) for i in range(mesh.size)]
+    if mesh.axis_size(plan.batch_axes) > 1:
+        lm = mesh.psum(lm, plan.batch_axes)
+    loss, nll = lm[0].mean(0).unbind()
+
+    grads = [[g / n_micro for g in xs] for xs in grads]
+    residual = None
+    if comp_cfg.enabled:
+        grads, residual = compress_blocks(mesh, named, grads, _named_leaves(state["residual"]), comp_cfg)
+    # the global norm: each block counted once, one psum over the mesh
+    sq = [torch.zeros((), dtype=torch.float32, device=dev) for dev in mesh.device_list]
+    for (names, sh), xs in zip(named, grads):
+        chunks, _ = mesh.chunk_of(sh.sharding.spec)
+        first = {}
+        for i, ch in enumerate(chunks):
+            first.setdefault(ch, i)
+        for ch, i in first.items():
+            sq[i] = sq[i] + torch.sum(xs[i].to(torch.float32) ** 2)
+    if mesh.size > 1:
+        sq = mesh.psum(sq, mesh.axis_names)
+    new_state = _adamw_blocks(plan, params_sh, named, grads, opt_sh, sq, opt_cfg)
+    if residual is not None:
+        new_state["residual"] = tree_unflatten(state["residual"], residual)
+    step = opt_sh["step"].shards[0] + 1
+    return new_state, {"loss": loss, "nll": nll, "grad_norm": torch.sqrt(sq[0]),
+                       "lr": adamw.lr_schedule(opt_cfg, step)}
+
+
+def _micro_counts(plan: _Plan, labels, rows, i: int):
+    """Microbatch ``i``'s valid-label counts on every device (one ``psum``
+    over the batch axes)."""
+    mesh = plan.mesh
+    counts = []
+    for dev_i in range(mesh.size):
+        lab = rows(labels, i, plan.shard_of[dev_i]).to(mesh.device_list[dev_i])
+        counts.append(torch.stack([(lab != -100).sum(), (lab[:, 2:] != -100).sum()]).to(torch.int32))
+    if mesh.axis_size(plan.batch_axes) > 1:
+        counts = mesh.psum(counts, plan.batch_axes)
+    return counts
+
+
+def _microbatches(cfg, plan: _Plan, tokens, labels, fe, n_micro: int, mb: int, run, add):
+    """The loop both executors share: for each microbatch its counts, the
+    MoE statistics, the local path's gradient-free first pass, then each
+    live data shard ``c``'s ``run(c, i, counts, grad=True) -> (total, nll,
+    grads)``, handed to ``add(c, grads)``.  Returns each data shard's
+    ``[total, nll]`` a microbatch."""
+    D = plan.n_data
+    mesh = plan.mesh
     lo, hi = shard_rows(mb, D)
     live = [c for c in range(D) if hi[c] > lo[c]]  # the others hold GSPMD's padding: no rows
     hidden = tokens.shape[1] + (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
     two_pass = cfg.moe is not None and len(live) > 1 and not plan.ep
     ep_loads = cfg.moe is not None and plan.ep and D > 1
-    accs: List[Any] = [None] * D
     parts = [[] for _ in range(D)]  # each data shard's (loss, nll) a microbatch
 
     def rows(x, i, c):
         return None if x is None else x[i * mb + lo[c]:i * mb + hi[c]].to(plan.device(c), non_blocking=True)
 
-    def run(c, i, counts, grad: bool):
+    try:
+        for i in range(n_micro):
+            counts = _micro_counts(plan, labels, rows, i)
+            stats = MOE.ShardStats(len(live), mb * hidden) if two_pass else MOE.EPLoads() if ep_loads else None
+            MOE.SHARD_CONTEXT["stats"] = stats
+            if two_pass:  # uncounted: no collective of the reference's program
+                with mesh.uncounted():
+                    for k, c in enumerate(live):
+                        stats.shard = k
+                        run(c, i, counts, rows, grad=False)
+                stats.recording = False
+            for c in range(D):
+                if c not in live:
+                    parts[c].append(torch.zeros((2,), dtype=torch.float32, device=plan.device(c)))
+                    continue
+                if stats is not None:
+                    stats.shard = live.index(c) if two_pass else c
+                total, nll, g = run(c, i, counts, rows, grad=True)
+                add(c, g)
+                parts[c].append(torch.stack([total, nll]))
+                del g
+            if ep_loads:  # the aux proxy's value, from the loads summed over the data axes
+                aux = stats.reduce(mesh, plan.groups, plan.batch_axes, cfg.moe.n_experts, plan.device(live[0]))
+                first = parts[live[0]]
+                first[-1] = first[-1] + torch.stack([TF.MOE_AUX_WEIGHT * aux, torch.zeros_like(aux)])
+    finally:
+        MOE.SHARD_CONTEXT["stats"] = None
+        MOE.EP_CONTEXT["group"] = None
+    return parts
+
+
+def _leader_micro(cfg, plan: _Plan, named, params_sh, tokens, labels, fe, n_micro, mb, ep_axis):
+    """Gather-at-use ("fsdp_flat", "ep_fsdp"): every split leaf gathered
+    once, each data shard's rows on its leader; each data shard's
+    accumulators (a tensor a leaf, or the expert path's list of blocks)."""
+    gathered = _gather_params(plan, cfg, named, TF.ACT_CTX["cast_params"])
+    trees = [_shard_params(plan, params_sh, named, gathered, c) for c in range(plan.n_data)]
+    accs: List[Any] = [None] * plan.n_data
+
+    def run(c, i, counts, rows, grad: bool):
         if plan.ep:
             MOE.EP_CONTEXT["group"] = plan.groups[c]
         norm = tuple(counts[plan.leaders[c]].clamp(min=1).unbind())
@@ -382,68 +499,179 @@ def sharded_train_step(cfg: ModelConfig, opt_cfg, n_micro: int, ep_axis, dp_spec
         return (total.detach(), metrics["nll"].detach(),
                 [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)])
 
-    try:
-        for i in range(n_micro):
-            counts = []
-            for dev_i in range(mesh.size):
-                lab = rows(labels, i, plan.shard_of[dev_i]).to(mesh.device_list[dev_i])
-                counts.append(torch.stack([(lab != -100).sum(), (lab[:, 2:] != -100).sum()]).to(torch.int32))
-            if mesh.axis_size(plan.batch_axes) > 1:
-                counts = mesh.psum(counts, plan.batch_axes)
-            stats = MOE.ShardStats(len(live), mb * hidden) if two_pass else MOE.EPLoads() if ep_loads else None
-            MOE.SHARD_CONTEXT["stats"] = stats
-            if two_pass:
-                for k, c in enumerate(live):
-                    stats.shard = k
-                    run(c, i, counts, grad=False)
-                stats.recording = False
-            for c in range(D):
-                if c not in live:
-                    parts[c].append(torch.zeros((2,), dtype=torch.float32, device=plan.device(c)))
-                    continue
-                if stats is not None:
-                    stats.shard = live.index(c) if two_pass else c
-                total, nll, g = run(c, i, counts, grad=True)
-                g = [[x.to(torch.float32) for x in b] if isinstance(b, list) else b.to(torch.float32)
-                     for b in _regroup(plan, named, g)]
-                accs[c] = g if accs[c] is None else [
-                    [a + x for a, x in zip(aa, gg)] if isinstance(aa, list) else aa + gg for aa, gg in zip(accs[c], g)
-                ]
-                parts[c].append(torch.stack([total, nll]))
-                del g
-            if ep_loads:  # the aux proxy's value, from the loads summed over the data axes
-                aux = stats.reduce(mesh, plan.groups, plan.batch_axes, cfg.moe.n_experts, plan.device(live[0]))
-                first = parts[live[0]]
-                first[-1] = first[-1] + torch.stack([TF.MOE_AUX_WEIGHT * aux, torch.zeros_like(aux)])
-    finally:
-        MOE.SHARD_CONTEXT["stats"] = None
-        MOE.EP_CONTEXT["group"] = None
-    del trees, gathered
+    def add(c, g):
+        g = [[x.to(torch.float32) for x in b] if isinstance(b, list) else b.to(torch.float32)
+             for b in _regroup(plan, named, g)]
+        accs[c] = g if accs[c] is None else [
+            [a + x for a, x in zip(aa, gg)] if isinstance(aa, list) else aa + gg for aa, gg in zip(accs[c], g)
+        ]
 
-    # the losses: one psum over the batch axes of each data shard's part
-    lm = [torch.stack(parts[plan.shard_of[i]]).to(mesh.device_list[i]) for i in range(mesh.size)]
-    if mesh.axis_size(plan.batch_axes) > 1:
-        lm = mesh.psum(lm, plan.batch_axes)
-    loss, nll = lm[0].mean(0).unbind()
+    parts = _microbatches(cfg, plan, tokens, labels, fe, n_micro, mb, run, add)
+    return accs, parts
 
-    grads = _reduce_grads(plan, named, accs)
-    del accs
-    grads = [[g / n_micro for g in xs] for xs in grads]
-    # the global norm: each block counted once, one psum over the mesh
-    sq = [torch.zeros((), dtype=torch.float32, device=dev) for dev in mesh.device_list]
-    for (names, sh), xs in zip(named, grads):
-        chunks, _ = mesh.chunk_of(sh.sharding.spec)
-        first = {}
-        for i, ch in enumerate(chunks):
-            first.setdefault(ch, i)
-        for ch, i in first.items():
-            sq[i] = sq[i] + torch.sum(xs[i].to(torch.float32) ** 2)
-    if mesh.size > 1:
-        sq = mesh.psum(sq, mesh.axis_names)
-    new_state = _adamw_blocks(plan, params_sh, named, grads, opt_sh, sq, opt_cfg)
-    step = opt_sh["step"].shards[0] + 1
-    return new_state, {"loss": loss, "nll": nll, "grad_norm": torch.sqrt(sq[0]),
-                       "lr": adamw.lr_schedule(opt_cfg, step)}
+
+def _head_split_micro(cfg, plan: _Plan, named, params_sh, tokens, labels, fe, n_micro, mb):
+    """Head-split ("tp", "ep"): each data shard's rows over its model group
+    (``models.tp_train``); each device's accumulators (one a leaf, in the
+    shape of its value before the shard narrows it)."""
+    mesh = plan.mesh
+    lay = TT.train_layout(cfg, mesh)
+    lplans = TT.leaf_plans(lay, mesh, [(names, sh.shape if sh.shape is not None else _padded_shape(mesh, sh),
+                                        sh.sharding.spec) for names, sh in named], plan.ep)
+    bases = TT.gather_bases(mesh, named, lplans)
+    accs: List[Any] = [None] * mesh.size
+
+    def run(c, i, counts, rows, grad: bool):
+        idx = plan.groups[c]
+        leaves = {}
+        for dev_i in idx:
+            leaves[dev_i] = [None if b is None else
+                             (b[dev_i].detach().requires_grad_() if grad else b[dev_i]) for b in bases]
+        trees = [tree_unflatten(params_sh, [TT.device_value(lp, leaves[dev_i][li], j)
+                                            for li, lp in enumerate(lplans)])
+                 for j, dev_i in enumerate(idx)]
+        grun = TT.GroupRun(mesh, idx, cfg, lay, trees, plan.ep)
+        norm = tuple(counts[idx[0]].clamp(min=1).unbind())
+        args = (rows(tokens, i, c), rows(labels, i, c), rows(fe, i, c), norm, TF.MOE_AUX_WEIGHT)
+        if not grad:
+            with torch.no_grad():
+                return TT.group_train_loss(grun, *args)
+        totals, nlls = TT.group_train_loss(grun, *args)
+        flat = [(dev_i, li, x) for dev_i in idx for li, x in enumerate(leaves[dev_i]) if x is not None]
+        grads = torch.autograd.grad(totals, [x for _, _, x in flat], allow_unused=True)
+        out = {dev_i: [None] * len(named) for dev_i in idx}
+        for (dev_i, li, x), g in zip(flat, grads):
+            out[dev_i][li] = torch.zeros_like(x) if g is None else g
+        return totals[0].detach(), nlls[0].detach(), out
+
+    def add(c, g):
+        for dev_i, gs in g.items():
+            gs = [None if x is None else x.to(torch.float32) for x in gs]
+            accs[dev_i] = gs if accs[dev_i] is None else [
+                None if a is None else a + x for a, x in zip(accs[dev_i], gs)]
+
+    parts = _microbatches(cfg, plan, tokens, labels, fe, n_micro, mb, run, add)
+    return (accs, lplans), parts
+
+
+def _pad_dim(x: torch.Tensor, d: int, n: int) -> torch.Tensor:
+    if x.shape[d] == n:
+        return x
+    pad = [0] * (2 * x.ndim)
+    pad[2 * (x.ndim - 1 - d) + 1] = n - x.shape[d]
+    return torch.nn.functional.pad(x, pad)
+
+
+def _reduce_head_split(plan: _Plan, named, accs_plans):
+    """Each leaf's summed gradient in its spec's blocks, from each device's
+    accumulator: over "model" as :class:`tp_train.LeafPlan`'s ``reduce``
+    says (a ``psum`` of the shards' parts, a gathered leaf's then cut to
+    the device's own block; the own block alone of a gathered leaf that
+    replicated values read whole), then over the batch axes
+    as the gather-at-use step reduces (a ``psum_scatter`` along a dimension
+    gathered over them, a ``psum`` over the rest)."""
+    accs, lplans = accs_plans
+    mesh = plan.mesh
+    out = []
+    for li, ((names, sh), lp) in enumerate(zip(named, lplans)):
+        spec = sh.sharding.spec
+        padded = _padded_shape(mesh, sh)
+        xs = []
+        for i in range(mesh.size):
+            g = None if accs[i] is None else accs[i][li]
+            if g is None:  # a data shard of padding alone, or a leaf the step does not read
+                shape = list(sh.shards[i].shape)
+                for d, _ in lp.gathers:
+                    shape[d] = sh.shape[d] if sh.shape is not None else padded[d]
+                g = torch.zeros(shape, dtype=torch.float32, device=sh.shards[i].device)
+            xs.append(g)
+        if lp.reduce == "psum":
+            xs = mesh.psum(xs, "model")
+        if lp.reduce != "none" and lp.mdim is not None:  # the device's own block of a gathered leaf
+            d = lp.mdim
+            xs = [_select_local(_pad_dim(x, d, padded[d]), mesh, spec, d, (), i) for i, x in enumerate(xs)]
+        gathered = dict(lp.gathers)
+        used = ()
+        for d in range(len(spec)):
+            inb = tuple(a for a in spec.dim_axes(d) if a in plan.batch_axes)
+            if not inb:
+                continue
+            used += inb
+            if d not in gathered:  # the leaf's block along it already
+                continue
+            xs = [_pad_dim(x, d, padded[d]) for x in xs]
+            if mesh.axis_size(inb) > 1:
+                xs = mesh.psum_scatter(xs, inb, dim=d)
+            else:
+                xs = [_select_local(x, mesh, spec, d, (), i) for i, x in enumerate(xs)]
+        rest = tuple(a for a in plan.batch_axes if a not in used)
+        if rest and mesh.axis_size(rest) > 1:
+            xs = mesh.psum(xs, rest)
+        out.append(xs)
+    return out
+
+
+def compress_blocks(mesh: Mesh, named, grads, residual_named, cfg: compression.CompressionConfig):
+    """``compression.compress`` over each leaf's blocks: ``g + r`` a block,
+    and where the leaf's unpadded size reaches ``min_size``, ``k = max(1,
+    int(size * top_k_frac))`` and the threshold the k-th largest ``|g + r|``
+    over the whole leaf, each block counted once and GSPMD's padding left
+    out: one ``all-gather`` of the blocks' magnitudes over the axes the
+    leaf is split over (the padding as -1, below every magnitude), then
+    each device its own top-k; ``mask = |g + r| >= thresh``.  Returns
+    ``(sparse blocks, new residual as Sharded leaves)``; ``sparse +
+    residual == g + r`` block for block (each entry is kept whole or left
+    whole)."""
+    sparse_all, res_all = [], []
+    for (names, sh), xs, (_, rsh) in zip(named, grads, residual_named):
+        ys = [x.to(torch.float32) + r for x, r in zip(xs, rsh.shards)]
+        shape = sh.shape if sh.shape is not None else _padded_shape(mesh, sh)
+        size = math.prod(shape)
+        if size < cfg.min_size:
+            sparse_all.append(ys)
+            res_all.append(Sharded(rsh.sharding, tuple(torch.zeros_like(y) for y in ys), rsh.shape))
+            continue
+        k = max(1, int(size * cfg.top_k_frac))
+        spec = sh.sharding.spec
+        axes = tuple(a for a in spec.axes if mesh.shape[a] > 1)
+        mags = []
+        for i, y in enumerate(ys):
+            m = y.abs()
+            if sh.shape is not None:  # GSPMD's padding: below every magnitude
+                m = torch.where(_live_mask(mesh, sh, i, y.device), m, -1.0)
+            mags.append(m.reshape(-1))
+        if axes:
+            mags = mesh.all_gather(mags, axes, dim=0)
+        made = {}
+        sparse, res = [], []
+        for i, (y, m) in enumerate(zip(ys, mags)):
+            key = (y.device, id(m))
+            if key not in made:
+                made[key] = torch.topk(m, k).values[-1]
+            keep = y.abs() >= made[key]
+            s = y * keep.to(y.dtype)
+            sparse.append(s)
+            res.append(y - s)
+        sparse_all.append(sparse)
+        res_all.append(Sharded(rsh.sharding, tuple(res), rsh.shape))
+    return sparse_all, res_all
+
+
+def _live_mask(mesh: Mesh, sh: Sharded, i: int, device) -> torch.Tensor:
+    """Which entries of device ``i``'s block of ``sh`` lie inside the leaf
+    (GSPMD's padding of an uneven split does not)."""
+    spec = sh.sharding.spec
+    block = sh.shards[i].shape
+    chunks, _ = mesh.chunk_of(spec)
+    split = [d for d in range(len(block)) if spec.dim_axes(d)]
+    coords = np.unravel_index(chunks[i], [mesh.axis_size(spec.dim_axes(d)) for d in split]) if split else ()
+    ok = torch.ones(block, dtype=torch.bool, device=device)
+    for d, c in zip(split, coords):
+        idx = torch.arange(block[d], device=device) + int(c) * block[d]
+        view = [1] * len(block)
+        view[d] = block[d]
+        ok = ok & (idx < sh.shape[d]).reshape(view)
+    return ok
 
 
 def shard_rows(rows: int, n: int) -> Tuple[List[int], List[int]]:

@@ -29,6 +29,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import mesh as MESH
 from repro_torch.core.mesh import axis_tuple
 
 from .config import ModelConfig, MoEConfig
@@ -236,19 +237,14 @@ def _rank_in_expert(top_idx: torch.Tensor) -> torch.Tensor:
 
 def _group_psum(parts: Sequence[torch.Tensor], mesh) -> torch.Tensor:
     """The sum of one tensor a model shard, in shard order, on the first
-    shard's device: ``lax.psum`` over one model group, counted as one
-    ``all-reduce`` on ``mesh`` each time it runs.  In a checkpointed layer
-    it runs once: the combine saves no tensor for the backward and is the
-    layer's last work, and the recompute in the backward stops once the
-    saved tensors are rebuilt (``torch.utils.checkpoint``'s early stop).
-    Autograd's backward of the sum copies the result's gradient to each
-    shard's device; the counters do not see that copy."""
-    acc = parts[0]
-    for x in parts[1:]:
-        acc = acc + x.to(acc.device, non_blocking=True)
-    if mesh is not None and len(parts) > 1:
-        mesh.count("all-reduce", acc)
-    return acc
+    shard's device: ``lax.psum`` over one model group (``mesh.sum_to_one``,
+    Megatron's g), counted as one ``all-reduce`` on ``mesh`` each time it
+    runs; its backward hands each shard the gradient unchanged.  In a
+    checkpointed layer it runs once: the combine saves no tensor for the
+    backward and is the layer's last work, and the recompute in the
+    backward stops once the saved tensors are rebuilt
+    (``torch.utils.checkpoint``'s early stop)."""
+    return MESH.sum_to_one(mesh, parts)
 
 
 def _ep_aux(n_experts: int, load: torch.Tensor) -> torch.Tensor:
@@ -322,11 +318,16 @@ def apply_moe_ep_local(
     device), each shard's load ``[E_local]`` (before any sum over the data
     axes) and the dropped count after the ``psum``."""
     size = len(wg)
+    devs = [mesh.device_list[group[j]] if mesh is not None else xt.device for j in range(size)]
+    # f: the tokens and the router enter each shard's split compute; their
+    # gradients are summed over the group (``shard_map``'s transpose of a
+    # replicated input), one counted all-reduce each in the backward
+    xs = MESH.copy_to_group(mesh, xt, devs)
+    rs = MESH.copy_to_group(mesh, router, devs)
     outs, loads, drops = [], [], []
-    for j in range(size):
-        dev = mesh.device_list[group[j]] if mesh is not None else xt.device
+    for j, dev in enumerate(devs):
         rb = None if router_bias is None else router_bias.to(dev)
-        o, ld, dr = _ep_shard(xt.to(dev), router.to(dev), rb, wg[j], wu[j], wd[j], cfg, j, size)
+        o, ld, dr = _ep_shard(xs[j], rs[j], rb, wg[j], wu[j], wd[j], cfg, j, size)
         outs.append(o)
         loads.append(ld)
         drops.append(dr)

@@ -85,7 +85,9 @@ def test_dp_spec_belongs_to_the_sharding_slice():
     """With ``dp_spec`` the step runs over the mesh its state is placed on:
     two data shards of the CPU give the unsharded step's loss and moments
     (``test_torch_shard_step.py`` holds every strategy to the reference);
-    compressing a sharded step's gradients is not ported and raises."""
+    with compression on, the sharded step runs and gives the unsharded
+    compressed step's loss (``test_torch_shard_compress.py`` holds the
+    rest)."""
 
     cfg, tc = T.configs("qwen2_0_5b")
     state = TST.init_train_state(torch.Generator().manual_seed(0), tc, "cpu")
@@ -98,8 +100,12 @@ def test_dp_spec_belongs_to_the_sharding_slice():
     np.testing.assert_allclose(float(m["loss"]), float(wm["loss"]), rtol=1e-5)
     for a, c in zip(tree_leaves(TST.gather_train_state(new, "cpu")["opt"]["m"]), tree_leaves(want["opt"]["m"])):
         assert T.rel_err(a.numpy(), c.numpy()) <= T.REL
-    with pytest.raises(NotImplementedError, match="compression"):
-        TST.make_train_step(tc, dp_spec=("data",), comp_cfg=TST.compression.CompressionConfig(enabled=True))
+    comp = TST.compression.CompressionConfig(enabled=True)
+    cstate = dict(state, residual=TST.compression.init_error_feedback(state["params"]))
+    _, cw = TST.make_train_step(tc, n_micro=2, ep_axis=None, comp_cfg=comp)(cstate, b)
+    placed = TST.place_train_state(cstate, tc, mesh, "fsdp_flat")
+    _, cm = TST.make_train_step(tc, n_micro=2, ep_axis=None, dp_spec=("data", "model"), comp_cfg=comp)(placed, b)
+    np.testing.assert_allclose(float(cm["loss"]), float(cw["loss"]), rtol=1e-5)
 
 
 def test_restart_resumes_training_bitexact(tmp_path):
