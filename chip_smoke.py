@@ -75,7 +75,10 @@ Phases, each of which asserts (any failure exits non-zero):
    with AdamW state) on ``TokenStream``'s Zipf(1.3) ids: the
    expert-parallel MoE at 1 x 4 against the local path on the embedding of
    those tokens (load and drops exact), one "ep" step at 1 x 4 (head-split
-   attention) and one "ep_fsdp" step at 2 x 2; the dry run's qwen2-0.5b ``train_4k`` cell at 16 x 16
+   attention) and one "ep_fsdp" step at 2 x 2; head-split "tp" steps at
+   2 x 2 for deepseek-v3 (MLA, one dense layer), mamba2-1.3b (4 of 48
+   layers) and phi3.5-moe (1 layer, the local MoE path) at published width,
+   each against the unsharded step run first; the dry run's qwen2-0.5b ``train_4k`` cell at 16 x 16
    under each strategy, and ``dryrun_assoc`` at 512 shards (group
    10,000, cut from 100,000); a ``[shard-metrics]`` line holds the
    numbers, the ``kernels`` line its launches as ``shard_*`` paths;
@@ -84,9 +87,13 @@ Phases, each of which asserts (any failure exits non-zero):
    ``make_prefill_step`` over the mesh): h2o-danube3-4b at its published
    width and depth on the 2 x 2 mesh, ``decode_32k``-shaped decode at
    batch 16 (the batch over "data"), ``long_500k`` at batch 1 (the slot
-   axis over "data"), 16 greedy steps each, and a 2 x 4,096 prefill,
+   axis over "data"), 8 greedy steps each, and a 2 x 4,096 prefill,
    against the unsharded steps (bfloat16 within 2^-5, float32 at 4 layers
-   within 1e-4, ``kpos`` and ``pos`` exact), every step's collectives
+   within 1e-4, ``kpos`` and ``pos`` exact); the head-split paths at
+   published width: deepseek-v3's MLA (3 dense layers) absorbed and naive,
+   on the sequence-parallel branch too, with FSDP rows under "tp";
+   mamba2-1.3b's Mamba-2 (48 layers); qwen2-0.5b's "hd" split on 2 x 4 and
+   replicated cache on 2 x 3; every step's collectives
    equal to ``dryrun.serve_collectives``, and the dry run's 30 serve cells
    at 16 x 16; a ``[serve-shard-metrics]`` line holds the numbers, the
    ``kernels`` line its launches (none) as ``shard_serve``;
@@ -147,10 +154,10 @@ Phases, each of which asserts (any failure exits non-zero):
     then ``scatter_add`` alone at that shape, with its bound, plain version
     and ``index_add_`` of the live prefix as a yardstick;
 15. the fleet (``repro_torch.fleet``, after the serve phases, with this
-    process's streaming state freed first): N = 1, 2 and 4 worker
-    processes, each a full-width ``cuda`` session (K=8, ``CONFIG``) fed its
-    host-tier shard of the 200 groups by ``FleetController.run``; N=4
-    again with the default ``ServeConfig``; and a kill leg (N=2 at reduced
+    process's streaming state freed first): N = 4 worker
+    processes, each a full-width ``cuda`` session (K=8, ``CONFIG``, the
+    default ``ServeConfig``) fed its host-tier shard of the 200 groups by
+    ``FleetController.run``; and a kill leg (N=2 at reduced
     depth, checkpointing: SIGKILL after the first durable checkpoint,
     revive, replay).  Every merged snapshot (one ``sort_dedup`` call over
     the workers' snapshots) is bit-identical to the library-mode K=8
@@ -158,19 +165,21 @@ Phases, each of which asserts (any failure exits non-zero):
     reports its own ``hier_cascade``, ``sort_dedup`` and ``merge_add``
     launches; a ``[fleet-metrics]`` line holds the rates;
 16. the port's benchmark suite (after the fleet, this process's streaming
-    state freed): ``python -m repro_torch.benchmarks.run --experiment
-    src/repro_torch/benchmarks/experiments/chip.json`` in a subprocess, all
-    nine sections at full width (``hier`` at the paper's 100 M edges; the
-    served sections and the fleet on the 20 M-record stream at ``CONFIG``'s
-    cuts, K=8, microbatches of 100,000; the kernels at the main paths'
-    shapes); every ``BENCH_<section>.json`` read back through the port's
+    state freed): ``python -m repro_torch.benchmarks.run --experiment``
+    over ``src/repro_torch/benchmarks/experiments/chip.json`` with the
+    depth cuts of ``BENCH_CUTS`` in a subprocess, all nine sections at
+    full width (``hier`` on 50 M of the paper's 100 M edges; the fleet on
+    the 20 M-record stream at N = 1 and 4, serve, query and obs on its
+    first 10 M, at ``CONFIG``'s cuts, K=8, microbatches of 100,000; the
+    kernels at the main paths' shapes), each section's seconds; every ``BENCH_<section>.json`` read back through the port's
     parsers, the port's gate clean on an empty history, every section's
     correctness fields true (kernels bit-identical to their plain
     versions, every snapshot's values the stream's counts) and its kernels
     launched; a ``[bench-metrics]`` line holds
     its rates and verdicts, and the ``kernels`` line its launches as
     ``bench_<section>`` paths;
-17. print a ``{"kernels": [...]}`` line, the card's name and power limit,
+17. print a ``[timing]`` line (every phase's seconds and the whole run's),
+    a ``{"kernels": [...]}`` line, the card's name and power limit,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path and read just after;
@@ -869,6 +878,20 @@ def free(torch) -> None:
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def setting(target, key, value):
+    """``target[key]`` (a dict) or ``target.key`` (a module) set to
+    ``value`` for the block, restored after it."""
+    get, put = ((target.__getitem__, target.__setitem__) if isinstance(target, dict)
+                else (lambda k: getattr(target, k), lambda k, v: setattr(target, k, v)))
+    was = get(key)
+    put(key, value)
+    try:
+        yield
+    finally:
+        put(key, was)
+
+
 def snapshot_holds_counts(torch, np, snap, data, what) -> None:
     """The global snapshot holds numpy's distinct keys, each with its
     count of records, and nothing else."""
@@ -1362,7 +1385,7 @@ def phase_single(torch, np, data):
 SERVE_EVERY = 50  # checkpoint every 50 microbatches of 100,000 (the kill comes after the first)
 SERVE_PUBLISH = 4  # publish a view every 4 microbatches (50 views over the 200 groups)
 SINGLE_SERVE_STEPS = 60  # the single engine's serve, at reduced depth
-SERVE_DEFAULT_STEPS = 60  # the default-ServeConfig serve, at reduced depth (cut from 200 groups)
+SERVE_DEFAULT_STEPS = 30  # the default-ServeConfig serve, at reduced depth (cut from 200 groups, then 60)
 LOOPBACK = (8, (4096, 32768), 262_144, 4096, 40)  # K, cuts, top capacity, batch, batches
 
 
@@ -1719,7 +1742,9 @@ def phase_loopback(torch, np, rows, cols, vals):
     return {"answers": len(replies), "views": len(seqs), "query_ms": query_ms, "rate": report.ingest_rate}
 
 
-FLEET_WORKERS = (1, 2, 4)  # the full-width sweep: 8, 16 and 32 instances on the card
+# the full-width fleet: 32 instances on the card (the sweep over N = 1, 2
+# and 4 cut to N = 4: phase_bench's fleet section runs N = 1, 2 and 4)
+FLEET_WORKERS = (4,)
 # the untracked serve of phase_serve: full microbatches, no host degree fold
 FLEET_SERVE = dict(track_degrees=False, max_batch=100_000, max_latency_ms=1e9)
 # the kill leg at reduced depth: K=8, cuts and top capacity that keep a
@@ -1919,8 +1944,9 @@ def phase_fleet(torch, np, data, want):
     """``repro_torch.fleet`` on the card: N worker processes, each a
     full-width ``cuda`` session (K=8, ``CONFIG``, 3.82 GB) serving its
     shard of the 200 R-MAT groups behind the controller's host-tier hash
-    router, at N = 1, 2 and 4 (8 to 32 instances); N=4 again with the
-    default ``ServeConfig``; and the kill leg at reduced depth.  Every
+    router, at N = 4 (32 instances; the bench's fleet section runs N = 1
+    and 4 untracked) with the default ``ServeConfig`` (degrees tracked in
+    the workers); and the kill leg (N = 2) at reduced depth.  Every
     merged snapshot (one ``sort_dedup`` call in this process over the
     workers' snapshots) is the library-mode K=8 snapshot ``want``, bit for
     bit; at N=4 also inside ``kernels.plain_versions()``.  The workers'
@@ -1928,7 +1954,6 @@ def phase_fleet(torch, np, data, want):
     from repro_torch import kernels
     from repro_torch.configs.d4m_stream import CONFIG
     from repro_torch.core import assoc
-    from repro_torch.d4m import ServeConfig
 
     rows, cols, vals = (data[k].reshape(-1).cpu().numpy() for k in ("R", "C", "V"))
     n, n_distinct = rows.shape[0], data["n_distinct"]
@@ -1947,9 +1972,9 @@ def phase_fleet(torch, np, data, want):
 
     for n_workers in FLEET_WORKERS:
         t0 = time.perf_counter()
-        report, spawn_s, hists = fleet_run(cfg, n_workers, rows, cols, vals,
-                                           ServeConfig(**FLEET_SERVE), True, f"n{n_workers}")
+        report, spawn_s, hists = fleet_run(cfg, n_workers, rows, cols, vals, None, True, f"n{n_workers}")
         push = hists["fleet.push_ns"]
+        check(report.telemetry is not None and cfg.serve is None, "the fleet's default ServeConfig")
         fleet_checks(report, n, n_workers)
         snap, merge_ms, merge_launches = fleet_merge(torch, report, want, f"fleet N={n_workers}")
         worker_launches = fleet_launches(report)
@@ -2006,25 +2031,6 @@ def phase_fleet(torch, np, data, want):
         f"{out['sweep'][max(FLEET_WORKERS)]['merged_snapshot_plain_ms']:.2f} ms); torch.sort of the "
         f"keys {mk['torch_sort_ms']:.4f} ms (reference only); kernel == plain_versions() (bit-identical)")
 
-    # -- the default ServeConfig, N=4 ---------------------------------------------
-    n_workers = max(FLEET_WORKERS)
-    report, spawn_s, _ = fleet_run(cfg, n_workers, rows, cols, vals, None, None, "default")
-    check(report.telemetry is not None and cfg.serve is None, "the fleet's default ServeConfig")
-    fleet_checks(report, n, n_workers)
-    snap, merge_ms, merge_launches = fleet_merge(torch, report, want, "fleet default ServeConfig")
-    add(fleet_launches(report))
-    add(merge_launches)
-    out["default"] = {"aggregate_rate": report.aggregate_rate, "wall_s": report.wall_s, "spawn_s": spawn_s,
-                      "worker_rates": [w["ingest_rate"] for w in report.per_worker],
-                      "merged_snapshot_ms": merge_ms, "launches": fleet_launches(report)}
-    del snap, report
-    gc.collect()
-    d = out["default"]
-    log(f"[fleet] N={n_workers}, default ServeConfig: {d['aggregate_rate']:,.0f} records/s aggregate "
-        f"(wall {d['wall_s']:.3f} s); workers {[round(x) for x in d['worker_rates']]} records/s; "
-        f"merged_snapshot {merge_ms:.2f} ms; launches in the workers {d['launches']}; "
-        f"merged == library-mode K=8 (bit-identical)")
-
     # -- the kill leg, N=2 at reduced depth ----------------------------------------
     kill = fleet_kill_leg(torch, np, rows, cols, vals, n_distinct, want)
     report = kill.pop("report")
@@ -2046,6 +2052,15 @@ def phase_fleet(torch, np, data, want):
 
 BENCH_SPEC = ROOT / "src" / "repro_torch" / "benchmarks" / "experiments" / "chip.json"
 BENCH_TIMEOUT_S = 600
+#: depth cuts of ``chip.json`` for this script's time limit (section: {param:
+#: value}); ``chip.json`` itself stays at full depth
+BENCH_CUTS = {
+    "hier": {"total_edges": 50_000_000},  # from the paper's 100,000,000 (scale 26 kept)
+    "serve": {"batches": 100, "socket_records": 500_000},  # from 200 microbatches; 2,000,000 socket records
+    "query": {"batches": 100},  # from 200 microbatches of 100,000
+    "obs": {"batches": 100},  # from 200, each of its three repeats
+    "fleet": {"hosts_values": [1, 4]},  # from 1, 2, 4 (phase_fleet's kill leg runs N = 2)
+}
 #: the kernels each bench section's path runs (all must launch)
 BENCH_KERNELS = {
     "hier_update": ("sort_dedup", "merge_add"),
@@ -2081,30 +2096,68 @@ def _bench_label(m) -> str:
 
 def phase_bench(torch, np):
     """The port's benchmark suite on the card: ``python -m
-    repro_torch.benchmarks.run --experiment .../chip.json`` in a subprocess
-    (all nine sections at the full-width sizes the spec names, ``hier`` at
-    the paper's 100 M edges), its ``BENCH_<section>.json`` read back through the port's
+    repro_torch.benchmarks.run --experiment`` over ``chip.json`` with the
+    depth cuts of ``BENCH_CUTS`` in a subprocess (all nine sections at the
+    full-width sizes the spec names, ``hier`` at 50 M edges),
+    each section's seconds from its output's arrival, its
+    ``BENCH_<section>.json`` read back through the port's
     parsers, the port's gate run against an empty history (a clean pass),
     every section's correctness fields true, its kernels launched, its
     verdicts and rates returned for the ``[bench-metrics]`` line."""
     import shutil
     import tempfile
+    import threading
 
     from repro_torch.bench import gate_run, normalize_dir
 
     out_dir = tempfile.mkdtemp(prefix="d4m-bench-")
     try:
+        spec = json.loads(BENCH_SPEC.read_text())
+        reduced = {}
+        for leg in spec["legs"]:
+            for k, v in BENCH_CUTS.get(leg["section"], {}).items():
+                reduced[f"{leg['section']}.{k}"] = [leg["params"][k], v]
+                leg["params"][k] = v
+        spec_path = Path(out_dir) / "spec" / "chip_cut.json"
+        spec_path.parent.mkdir()
+        spec_path.write_text(json.dumps(spec))
+        log(f"[bench] {BENCH_SPEC.name}, reduced: {reduced}")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.benchmarks.run", "--experiment", str(BENCH_SPEC),
+        lines, stderr = [], tempfile.TemporaryFile(mode="w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.benchmarks.run", "--experiment", str(spec_path),
              "--json-dir", out_dir],
-            cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=stderr, text=True,
         )
+
+        def read():
+            for line in proc.stdout:
+                lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        try:
+            proc.wait(timeout=BENCH_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            reader.join()
         wall = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
+        stderr.seek(0)
+        err_text = stderr.read()
+        stderr.close()
+        sections_s, last = {}, (0.0, None)
+        for at, line in lines:
             log(f"[bench] {line}")
-        check(proc.returncode == 0, f"the bench suite exited {proc.returncode}: {proc.stderr[-4000:]}")
+            if line.startswith("experiment,"):  # a section begins
+                if last[1] is not None:
+                    sections_s[last[1]] = at - last[0]
+                last = (at, dict(kv.split("=", 1) for kv in line.split(",") if "=" in kv).get("leg"))
+        if last[1] is not None:
+            sections_s[last[1]] = wall - last[0]
+        check(proc.returncode == 0, f"the bench suite exited {proc.returncode}: {err_text[-4000:]}")
         record, problems = normalize_dir(out_dir, strict=True)
         check(not problems, problems)
         sections = record.sections()
@@ -2112,7 +2165,7 @@ def phase_bench(torch, np):
         gate = gate_run(record, [])
         check(gate.baseline_established and gate.passed and not gate.failed,
               "the port's gate on an empty history is a clean pass")
-        out = {"wall_s": wall, "sections": {}, "launches": {}}
+        out = {"wall_s": wall, "sections_s": sections_s, "reduced": reduced, "sections": {}, "launches": {}}
         for section in sections:
             ms = [m for m in record.measurements if m.section == section]
             launches = {name: 0 for name in counters()}
@@ -2135,7 +2188,8 @@ def phase_bench(torch, np):
             out["sections"][section] = {"rates": rates, "verdicts": verdicts}
             out["launches"][section] = launches
         log(f"[bench] {len(record.measurements)} measurements in {len(sections)} sections, "
-            f"{wall:.1f} s; the port's gate on an empty history: baseline established (pass)")
+            f"{wall:.1f} s ({ {k: round(v, 1) for k, v in sections_s.items()} } s a leg, from the output's "
+            f"arrival); the port's gate on an empty history: baseline established (pass)")
         return out
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -3274,7 +3328,7 @@ def live_shards(ST, rows: int, n: int) -> int:
     return sum(1 for a, b in zip(lo, hi) if b > a)
 
 
-def phase_shard(torch, np):
+def phase_shard(torch, np, legs=("a", "b", "e", "c")):
     """The sharded LM path on the card (``models/sharding.py``'s plans,
     ``launch.steps``' sharded step, the expert-parallel MoE, the dry run).
 
@@ -3300,9 +3354,15 @@ def phase_shard(torch, np):
         exactly, output within 1e-4 in float32); one "ep" step at 1 x 4
         (head-split attention, the experts by ``moe._ep_shard``) and one
         "ep_fsdp" step at 2 x 2, their collectives equal to the formula;
+    (e) head-split "tp" steps on 2 x 2 for the families (a) and (b)
+        bypass: MLA, Mamba-2 and the local MoE path (:func:`tp_train_legs`);
     (c) the dry run's qwen2-0.5b ``train_4k`` cell at the production
         16 x 16 mesh under each strategy, and ``dryrun_assoc`` at 512
-        shards (the group cut), its bytes printed first."""
+        shards (the group cut), its bytes printed first.
+
+    Each sharded step runs after the unsharded one it is held to (one step
+    each: the timing repeats were cut).  ``legs`` picks among "a", "b",
+    "e" and "c"."""
     import dataclasses
 
     from repro_torch import kernels
@@ -3341,14 +3401,29 @@ def phase_shard(torch, np):
     opt_cfg = adamw.AdamWConfig(warmup_steps=0)
     mesh = make_local_mesh(data=SHARD_MESH[0], model=SHARD_MESH[1], device=DEVICE)
 
-    def sharded_leg(cfg, state, batch, strategy, tag, leaf_rel, loss_rel, reps=2, n_micro=TRAIN_MICRO):
+    def sharded_leg(cfg, state, batch, strategy, tag, leaf_rel, loss_rel, n_micro=TRAIN_MICRO, keep=False):
         """One strategy on ``mesh`` against the unsharded step (same launch
-        context, same state): the checks, the times, the launches."""
+        context, same state; ``state`` a state or a function making it
+        afresh, which lets each step hold it alone): the unsharded step
+        first, its loss and first moments kept on the host and its new
+        state freed before the sharded step runs; the checks (each moment
+        leaf gathered in turn), the times, the launches, the peak memory;
+        with ``keep`` also the whole new state gathered, the placed state
+        and the step."""
         seq = batch["tokens"].shape[1]
+        made = state if callable(state) else (lambda: state)
+        torch.cuda.reset_peak_memory_stats()
         with ST.strategy_context(mesh, strategy) as (plan, ep_axis):
             want_step = ST.make_train_step(cfg, opt_cfg, n_micro=n_micro, ep_axis=ep_axis)
-            (want, wm), w_ms = timed(want_step, state, batch)
-            placed = ST.place_train_state(state, cfg, mesh, plan)
+            (want, wm), w_ms = timed(want_step, made(), batch)
+            w_loss = float(wm["loss"])
+            w_m = [x.cpu() for x in tree_leaves(want["opt"]["m"])]
+            del want, wm
+            free(torch)
+            w_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            placed = ST.place_train_state(made(), cfg, mesh, plan)
+            free(torch)
             bx = SD.batch_axes(cfg, mesh, plan)
             step = ST.make_train_step(cfg, opt_cfg, n_micro=n_micro, ep_axis=ep_axis, dp_spec=bx)
             split = ST.head_split(mesh, bx)
@@ -3357,201 +3432,273 @@ def phase_shard(torch, np):
             (new, m), s_ms = timed(step, placed, batch)
             launches = read_counts()
             counted = dict(mesh.collectives), dict(mesh.collective_bytes)
-            times = [s_ms]
-            for _ in range(reps - 1):
-                times.append(timed(step, placed, batch)[1])
-            w_times = [w_ms] + [timed(want_step, state, batch)[1] for _ in range(reps - 1)]
+        s_peak = torch.cuda.max_memory_allocated()
         d = mesh.axis_size(bx)
         live = live_shards(ST, batch["tokens"].shape[0] // n_micro, d)
         per = mesh.shape["model"] if split else 1  # head-split: each model shard's vocabulary block
+        per *= 2 if cfg.mtp_depth else 1  # the MTP block gathers the shifted tokens' embedding too
         check(launches["scatter_add"] == live * n_micro * per,
-              (tag, "scatter_add once a data shard holding rows (and model shard) a microbatch", launches, d, live,
-               n_micro, per))
+              (tag, "scatter_add once a data shard holding rows (and model shard) a microbatch and gather",
+               launches, d, live, n_micro, per))
         check(counted == DR.step_collectives(cfg, mesh, strategy, n_micro, batch["tokens"].shape[0], seq),
               (tag, "the mesh's collectives equal the dry run's formula", counted))
-        loss_err = abs(float(m["loss"]) - float(wm["loss"])) / abs(float(wm["loss"]))
-        got = ST.gather_train_state(new)
-        worst = max(rel(a, b) for a, b in zip(tree_leaves(got["opt"]["m"]), tree_leaves(want["opt"]["m"])))
-        check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(got["params"])), (tag, "finite params"))
+        loss_err = abs(float(m["loss"]) - w_loss) / abs(w_loss)
+        worst = 0.0
+        for sh, want_m in zip(tree_leaves(new["opt"]["m"]), w_m):
+            got_m = sh.gather()
+            worst = max(worst, rel(got_m, want_m.to(got_m.device)))
+            del got_m
+        check(all(bool(torch.isfinite(b).all()) for sh in tree_leaves(new["params"]) for b in sh.shards),
+              (tag, "finite params"))
         check(loss_err <= loss_rel and worst <= leaf_rel, (tag, "sharded against unsharded", loss_err, worst))
-        res = {"strategy": strategy, "head_split": split, "data_shards": d, "data_shards_with_rows": live,
-               "loss": float(m["loss"]), "unsharded_loss": float(wm["loss"]),
-               "loss_rel_err": loss_err, "worst_moment_leaf_rel_err": worst, "sharded_ms": times,
-               "unsharded_ms": w_times, "collectives": counted[0], "collective_bytes": counted[1],
-               "launches": launches}
-        log(f"[shard] {tag}: loss {float(m['loss']):.5f} (unsharded {float(wm['loss']):.5f}, rel {loss_err:.2e}); "
-            f"worst moment leaf {worst:.2e}; sharded {[round(t, 1) for t in times]} ms against unsharded "
-            f"{[round(t, 1) for t in w_times]} ms; collectives {counted[0]} ({counted[1]} bytes a device); "
-            f"launches {launches}")
-        return res, got, placed, step
+        res = {"strategy": strategy, "mesh": dict(mesh.shape), "head_split": split, "data_shards": d,
+               "data_shards_with_rows": live, "loss": float(m["loss"]), "unsharded_loss": w_loss,
+               "loss_rel_err": loss_err, "worst_moment_leaf_rel_err": worst, "sharded_ms": [s_ms],
+               "unsharded_ms": [w_ms], "collectives": counted[0], "collective_bytes": counted[1],
+               "launches": launches, "peak_gb": {"unsharded": w_peak / 1e9, "sharded": s_peak / 1e9}}
+        log(f"[shard] {tag}: loss {float(m['loss']):.5f} (unsharded {w_loss:.5f}, rel {loss_err:.2e}); "
+            f"worst moment leaf {worst:.2e}; sharded {s_ms:.1f} ms against unsharded {w_ms:.1f} ms; collectives "
+            f"{counted[0]} ({counted[1]} bytes a device); launches {launches}; peak {w_peak / 1e9:.2f} GB "
+            f"unsharded, {s_peak / 1e9:.2f} GB sharded")
+        if not keep:
+            return res, None, None, None
+        return res, ST.gather_train_state(new), placed, step
 
-    # ---- (a) qwen2-0.5b at full width and depth
-    cfg = get_config(TRAIN_ARCH)
-    host = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=TRAIN_SEED).batch_at(0)
-    batch = {k: torch.from_numpy(x).to(DEVICE) for k, x in host.items()}
-    state = ST.init_train_state(torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED), cfg, DEVICE)
-    nbytes = tree_bytes(state["params"])
-    log(f"[shard] (a) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype} compute over "
-        f"{nbytes / 1e9:.2f} GB of float32 weights; batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} "
-        f"microbatches, remat; mesh {mesh.shape} of {mesh.device_list[0]}; no reductions")
-    for strategy in ("fsdp_flat", "tp"):
-        res, got, placed, step = sharded_leg(cfg, state, batch, strategy, f"(a) {strategy}", SHARD_LEAF_REL,
-                                             SHARD_LOSS_REL)
-        out["steps"][strategy] = res
-        out["launches"][f"shard_{strategy}"] = res["launches"]
-        if strategy == "fsdp_flat":  # the path inside plain_versions()
-            with ST.strategy_context(mesh, strategy):
+    if "a" in legs:
+        # ---- (a) qwen2-0.5b at full width and depth
+        cfg = get_config(TRAIN_ARCH)
+        host = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=TRAIN_SEED).batch_at(0)
+        batch = {k: torch.from_numpy(x).to(DEVICE) for k, x in host.items()}
+        state = ST.init_train_state(torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED), cfg, DEVICE)
+        nbytes = tree_bytes(state["params"])
+        log(f"[shard] (a) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype} compute over "
+            f"{nbytes / 1e9:.2f} GB of float32 weights; batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} "
+            f"microbatches, remat; mesh {mesh.shape} of {mesh.device_list[0]}; no reductions")
+        for strategy in ("fsdp_flat", "tp"):
+            res, got, placed, step = sharded_leg(cfg, state, batch, strategy, f"(a) {strategy}", SHARD_LEAF_REL,
+                                                 SHARD_LOSS_REL, keep=strategy == "fsdp_flat")
+            out["steps"][strategy] = res
+            out["launches"][f"shard_{strategy}"] = res["launches"]
+            if strategy == "fsdp_flat":  # the path inside plain_versions()
+                with ST.strategy_context(mesh, strategy):
+                    zero_counts()
+                    with kernels.plain_versions():
+                        plain, _ = step(placed, batch)
+                        torch.cuda.synchronize()
+                    p_launches = read_counts()
+                check(sum(p_launches.values()) == 0, ("no launch inside plain_versions()", p_launches))
+                plain = ST.gather_train_state(plain)
+                pairs = list(zip(tree_leaves(got), tree_leaves(plain)))
+                bits = all(torch.equal(a, b) for a, b in pairs)
+                check(all(torch.allclose(a, b, rtol=1e-6, atol=0) for a, b in pairs),
+                      "(a) fsdp_flat: the kernels against plain_versions(), within rtol 1e-6")
+                res["plain_versions_bit_identical"] = bits
+                log(f"[shard] (a) fsdp_flat inside plain_versions(): "
+                    f"{'bit-identical to' if bits else 'within rtol 1e-6 of'} the kernels' step")
+                del plain, pairs
+            del got, placed, step
+            free(torch)
+        del state
+        free(torch)
+        leg_done("a_bf16")
+        fcfg = dataclasses.replace(cfg, **SHARD_FP32_CUT)
+        fstate = ST.init_train_state(torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED), fcfg, DEVICE)
+        out["launches"]["shard_fp32"] = {}
+        for strategy in ("fsdp_flat", "tp"):
+            res, got, placed, step = sharded_leg(fcfg, fstate, batch, strategy, f"(a) float32 {strategy}",
+                                                 SHARD_FP32_REL, SHARD_FP32_REL)
+            out["steps"][f"float32_{strategy}"] = res
+            for k, v in res["launches"].items():
+                out["launches"]["shard_fp32"][k] = out["launches"]["shard_fp32"].get(k, 0) + v
+            del got, placed, step
+        leg_done("a_fp32")
+        out["compression"], out["launches"]["shard_compress"] = compression_leg(
+            torch, np, ST, SD, DR, mesh, fcfg, fstate, batch, opt_cfg, timed)
+        del fstate
+        free(torch)
+        leg_done("a_compress")
+
+    if "b" in legs:
+        # ---- (b) phi3.5-moe at full width: expert parallelism
+        ecfg = get_config(SHARD_EP_ARCH)
+        total = torch.cuda.get_device_properties(0).total_memory
+        for layers in (2, 1):
+            pb = tree_bytes(TF.init_params(None, dataclasses.replace(ecfg, n_layers=layers), device="meta"))
+            # the placed params, m and v, the new ones, two data shards' float32
+            # gradients, the gathered weights, and room to run
+            need = 9 * pb + 8e9
+            if need <= total:
+                break
+        ecfg = dataclasses.replace(ecfg, n_layers=layers)
+        log(f"[shard] (b) {ecfg.name}: d_model {ecfg.d_model}, {ecfg.moe.n_experts} experts, top-{ecfg.moe.top_k}, "
+            f"d_expert {ecfg.moe.d_expert}, vocab {ecfg.vocab:,}; float32 weights {pb / 1e9:.2f} GB at {layers} "
+            f"layer(s) (needs {need / 1e9:.1f} of {total / 1e9:.1f} GB with AdamW state and two data shards' "
+            f"gradients); reduced: n_layers {get_config(SHARD_EP_ARCH).n_layers} -> {layers}")
+
+        def fresh():
+            return ST.init_train_state(torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED), ecfg, DEVICE)
+
+        # train_lm's traffic: TokenStream's Zipf(1.3) ids, as leg (a) and phase_train take
+        ehost = TokenStream(ecfg.vocab, 2 * SHARD_EP_BATCH, SHARD_EP_SEQ, seed=TRAIN_SEED).batch_at(0)
+        ebatch = {k: torch.from_numpy(v).to(DEVICE) for k, v in ehost.items()}
+        distinct = int(torch.unique(ebatch["tokens"]).numel())
+        estate = fresh()
+        eplan = TF.build_plan(ecfg)
+        si, gi = next((si, gi) for si, st in enumerate(eplan) for gi, g in enumerate(st.specs) if g.has_moe)
+        moe_p = estate["params"]["stages"][si][gi]["moe"]  # the first MoE layer's
+        if eplan[si].reps > 1:
+            moe_p = TF.layer_of(moe_p, 0)
+        with torch.no_grad():
+            # the first layer's input for the step's tokens: their embedding, in float32
+            x = L.embed_tokens(estate["params"]["embed"], ecfg, ebatch["tokens"], torch.float32)
+            want, waux = MOE.apply_moe(moe_p, ecfg, x, ep_axis=None)
+            emesh = make_local_mesh(data=1, model=4, device=DEVICE)
+            MOE.EP_CONTEXT.update(mesh=emesh, dp="data")
+            try:
+                got_out, gaux = MOE.apply_moe(moe_p, ecfg, x, ep_axis="model")
+            finally:
+                MOE.EP_CONTEXT.update(mesh=None, dp=None)
+        ep_err = rel(got_out, want)
+        check(torch.equal(gaux["expert_load"], waux["expert_load"]), "(b) EP load equals the local path's")
+        check(int(gaux["moe_dropped"]) == int(waux["moe_dropped"]), "(b) EP dropped count equals the local path's")
+        check(ep_err <= SHARD_FP32_REL, ("(b) EP output against the local path", ep_err))
+        n_tok = x.shape[0] * x.shape[1]
+        out["ep_vs_local"] = {"rel_err": ep_err, "expert_load": waux["expert_load"].tolist(),
+                              "moe_dropped": int(waux["moe_dropped"]), "tokens": n_tok, "distinct_ids": distinct,
+                              "assignments": n_tok * ecfg.moe.top_k}
+        log(f"[shard] (b) EP at 1 x 4 against the local path on the embedding of {2 * SHARD_EP_BATCH} x "
+            f"{SHARD_EP_SEQ} TokenStream tokens ({distinct:,} distinct ids of {ecfg.vocab:,}), float32: output within "
+            f"{ep_err:.2e} of its max; load {out['ep_vs_local']['expert_load']} and dropped "
+            f"{out['ep_vs_local']['moe_dropped']} of {n_tok * ecfg.moe.top_k} assignments equal")
+        del got_out, want, x, estate, moe_p
+        free(torch)
+        for strategy, (dd, mm) in (("ep", (1, 4)), ("ep_fsdp", (2, 2))):
+            smesh = make_local_mesh(data=dd, model=mm, device=DEVICE)
+            with ST.strategy_context(smesh, strategy) as (plan, ep_axis):
+                estate = fresh()
+                placed = ST.place_train_state(estate, ecfg, smesh, plan)
+                del estate  # the placed copy alone
+                bx = SD.batch_axes(ecfg, smesh, plan)
+                step = ST.make_train_step(ecfg, opt_cfg, n_micro=TRAIN_MICRO, ep_axis=ep_axis, dp_spec=bx)
+                split = ST.head_split(smesh, bx)
+                smesh.reset_collectives()
                 zero_counts()
-                with kernels.plain_versions():
-                    plain, _ = step(placed, batch)
-                    torch.cuda.synchronize()
-                p_launches = read_counts()
-            check(sum(p_launches.values()) == 0, ("no launch inside plain_versions()", p_launches))
-            plain = ST.gather_train_state(plain)
-            pairs = list(zip(tree_leaves(got), tree_leaves(plain)))
-            bits = all(torch.equal(a, b) for a, b in pairs)
-            check(all(torch.allclose(a, b, rtol=1e-6, atol=0) for a, b in pairs),
-                  "(a) fsdp_flat: the kernels against plain_versions(), within rtol 1e-6")
-            res["plain_versions_bit_identical"] = bits
-            log(f"[shard] (a) fsdp_flat inside plain_versions(): "
-                f"{'bit-identical to' if bits else 'within rtol 1e-6 of'} the kernels' step")
-            del plain, pairs
-        del got, placed, step
+                (new, m), ms = timed(step, placed, ebatch)
+                launches = read_counts()
+            counted = dict(smesh.collectives), dict(smesh.collective_bytes)
+            live = live_shards(ST, 2 * SHARD_EP_BATCH // TRAIN_MICRO, smesh.axis_size(bx))
+            per = smesh.shape["model"] if split else 1
+            check(launches["scatter_add"] == live * TRAIN_MICRO * per, (strategy, "scatter_add", launches, per))
+            check(counted == DR.step_collectives(ecfg, smesh, strategy, TRAIN_MICRO, 2 * SHARD_EP_BATCH, SHARD_EP_SEQ),
+                  (strategy, "collectives equal the formula", counted))
+            check(np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])), (strategy, "finite loss", m))
+            out["steps"][strategy] = {"mesh": dict(smesh.shape), "head_split": split, "loss": float(m["loss"]), "ms": ms,
+                                      "collectives": counted[0], "collective_bytes": counted[1], "launches": launches}
+            out["launches"][f"shard_{strategy}"] = launches
+            log(f"[shard] (b) {strategy} step at {smesh.shape}: loss {float(m['loss']):.4f}, {ms:.1f} ms, collectives "
+                f"{counted[0]}, launches {launches}")
+            del placed, new, step
+            free(torch)
+        leg_done("b_ep")
+
+    if "e" in legs:
+        tp_train_legs(torch, out, sharded_leg, leg_done)
+    if "c" in legs:
+        # ---- (c) the dry run at the production mesh, and dryrun_assoc
+        pmesh = make_production_mesh(device=DEVICE)
+        out["dryrun"] = {}
+        for strategy in ST.STRATEGIES:
+            cell = DR.plan_cell(TRAIN_ARCH, "train_4k", pmesh, strategy)
+            r = cell["roofline"]
+            out["dryrun"][strategy] = {"memory": cell["memory"], "n_micro": cell["n_micro"],
+                                       "collectives": cell["collectives"]["calls"],
+                                       "collective_bytes": cell["collectives"]["bytes"],
+                                       "t_compute_ms": r["t_compute_s"] * 1e3, "t_memory_ms": r["t_memory_s"] * 1e3,
+                                       "t_collective_ms": r["t_collective_s"] * 1e3, "bottleneck": r["bottleneck"],
+                                       "executor_only": cell["executor_only"]}
+            log(f"[shard] (c) dry run {TRAIN_ARCH} train_4k at {pmesh.shape} under {strategy}: "
+                f"{json.dumps(out['dryrun'][strategy])}")
+        zero_counts()
+        d, g = SHARD_ASSOC
+        assoc = DA.run(d, g, DEVICE, log=lambda s: log(f"[shard] (c) dryrun_assoc {s}"))
+        a_launches = read_counts()
+        par, sh = assoc[f"parallel_hier_{d}"], assoc[f"sharded_assoc_{d}"]
+        check(par["update_path_collective_free"], ("(c) the paper design's update holds no collective", par))
+        check(sh["routes_via_all_to_all"], ("(c) ShardedAssoc routes by all-to-all", sh))
+        check(a_launches["hier_cascade"] + a_launches["sort_dedup"] > 0, ("(c) dryrun_assoc's kernels", a_launches))
+        out["dryrun_assoc"] = {**assoc, "reduced": {"group": [100_000, g]}, "launches": a_launches}
+        out["launches"]["shard_assoc"] = a_launches
+        log(f"[shard] (c) dryrun_assoc at D={d}, group {g} (cut from 100,000): parallel {par['collectives']} "
+            f"in {par['update_s']:.2f} s, sharded {sh['collectives']} in {sh['update_s']:.2f} s, dropped "
+            f"{sh['dropped']}; launches {a_launches}")
         free(torch)
-    del state
-    free(torch)
-    leg_done("a_bf16")
-    fcfg = dataclasses.replace(cfg, **SHARD_FP32_CUT)
-    fstate = ST.init_train_state(torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED), fcfg, DEVICE)
-    out["launches"]["shard_fp32"] = {}
-    for strategy in ("fsdp_flat", "tp"):
-        res, got, placed, step = sharded_leg(fcfg, fstate, batch, strategy, f"(a) float32 {strategy}",
-                                             SHARD_FP32_REL, SHARD_FP32_REL, reps=1)
-        out["steps"][f"float32_{strategy}"] = res
-        for k, v in res["launches"].items():
-            out["launches"]["shard_fp32"][k] = out["launches"]["shard_fp32"].get(k, 0) + v
-        del got, placed, step
-    leg_done("a_fp32")
-    out["compression"], out["launches"]["shard_compress"] = compression_leg(
-        torch, np, ST, SD, DR, mesh, fcfg, fstate, batch, opt_cfg, timed)
-    del fstate
-    free(torch)
-    leg_done("a_compress")
-
-    # ---- (b) phi3.5-moe at full width: expert parallelism
-    ecfg = get_config(SHARD_EP_ARCH)
-    total = torch.cuda.get_device_properties(0).total_memory
-    for layers in (2, 1):
-        pb = tree_bytes(TF.init_params(None, dataclasses.replace(ecfg, n_layers=layers), device="meta"))
-        # the placed params, m and v, the new ones, two data shards' float32
-        # gradients, the gathered weights, and room to run
-        need = 9 * pb + 8e9
-        if need <= total:
-            break
-    ecfg = dataclasses.replace(ecfg, n_layers=layers)
-    log(f"[shard] (b) {ecfg.name}: d_model {ecfg.d_model}, {ecfg.moe.n_experts} experts, top-{ecfg.moe.top_k}, "
-        f"d_expert {ecfg.moe.d_expert}, vocab {ecfg.vocab:,}; float32 weights {pb / 1e9:.2f} GB at {layers} "
-        f"layer(s) (needs {need / 1e9:.1f} of {total / 1e9:.1f} GB with AdamW state and two data shards' "
-        f"gradients); reduced: n_layers {get_config(SHARD_EP_ARCH).n_layers} -> {layers}")
-
-    def fresh():
-        return ST.init_train_state(torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED), ecfg, DEVICE)
-
-    # train_lm's traffic: TokenStream's Zipf(1.3) ids, as leg (a) and phase_train take
-    ehost = TokenStream(ecfg.vocab, 2 * SHARD_EP_BATCH, SHARD_EP_SEQ, seed=TRAIN_SEED).batch_at(0)
-    ebatch = {k: torch.from_numpy(v).to(DEVICE) for k, v in ehost.items()}
-    distinct = int(torch.unique(ebatch["tokens"]).numel())
-    estate = fresh()
-    eplan = TF.build_plan(ecfg)
-    si, gi = next((si, gi) for si, st in enumerate(eplan) for gi, g in enumerate(st.specs) if g.has_moe)
-    moe_p = estate["params"]["stages"][si][gi]["moe"]  # the first MoE layer's
-    if eplan[si].reps > 1:
-        moe_p = TF.layer_of(moe_p, 0)
-    with torch.no_grad():
-        # the first layer's input for the step's tokens: their embedding, in float32
-        x = L.embed_tokens(estate["params"]["embed"], ecfg, ebatch["tokens"], torch.float32)
-        want, waux = MOE.apply_moe(moe_p, ecfg, x, ep_axis=None)
-        emesh = make_local_mesh(data=1, model=4, device=DEVICE)
-        MOE.EP_CONTEXT.update(mesh=emesh, dp="data")
-        try:
-            got_out, gaux = MOE.apply_moe(moe_p, ecfg, x, ep_axis="model")
-        finally:
-            MOE.EP_CONTEXT.update(mesh=None, dp=None)
-    ep_err = rel(got_out, want)
-    check(torch.equal(gaux["expert_load"], waux["expert_load"]), "(b) EP load equals the local path's")
-    check(int(gaux["moe_dropped"]) == int(waux["moe_dropped"]), "(b) EP dropped count equals the local path's")
-    check(ep_err <= SHARD_FP32_REL, ("(b) EP output against the local path", ep_err))
-    n_tok = x.shape[0] * x.shape[1]
-    out["ep_vs_local"] = {"rel_err": ep_err, "expert_load": waux["expert_load"].tolist(),
-                          "moe_dropped": int(waux["moe_dropped"]), "tokens": n_tok, "distinct_ids": distinct,
-                          "assignments": n_tok * ecfg.moe.top_k}
-    log(f"[shard] (b) EP at 1 x 4 against the local path on the embedding of {2 * SHARD_EP_BATCH} x "
-        f"{SHARD_EP_SEQ} TokenStream tokens ({distinct:,} distinct ids of {ecfg.vocab:,}), float32: output within "
-        f"{ep_err:.2e} of its max; load {out['ep_vs_local']['expert_load']} and dropped "
-        f"{out['ep_vs_local']['moe_dropped']} of {n_tok * ecfg.moe.top_k} assignments equal")
-    del got_out, want, x, estate, moe_p
-    free(torch)
-    for strategy, (dd, mm) in (("ep", (1, 4)), ("ep_fsdp", (2, 2))):
-        smesh = make_local_mesh(data=dd, model=mm, device=DEVICE)
-        with ST.strategy_context(smesh, strategy) as (plan, ep_axis):
-            estate = fresh()
-            placed = ST.place_train_state(estate, ecfg, smesh, plan)
-            del estate  # the placed copy alone
-            bx = SD.batch_axes(ecfg, smesh, plan)
-            step = ST.make_train_step(ecfg, opt_cfg, n_micro=TRAIN_MICRO, ep_axis=ep_axis, dp_spec=bx)
-            split = ST.head_split(smesh, bx)
-            smesh.reset_collectives()
-            zero_counts()
-            (new, m), ms = timed(step, placed, ebatch)
-            launches = read_counts()
-        counted = dict(smesh.collectives), dict(smesh.collective_bytes)
-        live = live_shards(ST, 2 * SHARD_EP_BATCH // TRAIN_MICRO, smesh.axis_size(bx))
-        per = smesh.shape["model"] if split else 1
-        check(launches["scatter_add"] == live * TRAIN_MICRO * per, (strategy, "scatter_add", launches, per))
-        check(counted == DR.step_collectives(ecfg, smesh, strategy, TRAIN_MICRO, 2 * SHARD_EP_BATCH, SHARD_EP_SEQ),
-              (strategy, "collectives equal the formula", counted))
-        check(np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])), (strategy, "finite loss", m))
-        out["steps"][strategy] = {"mesh": dict(smesh.shape), "head_split": split, "loss": float(m["loss"]), "ms": ms,
-                                  "collectives": counted[0], "collective_bytes": counted[1], "launches": launches}
-        out["launches"][f"shard_{strategy}"] = launches
-        log(f"[shard] (b) {strategy} step at {smesh.shape}: loss {float(m['loss']):.4f}, {ms:.1f} ms, collectives "
-            f"{counted[0]}, launches {launches}")
-        del placed, new, step
-        free(torch)
-    leg_done("b_ep")
-
-    # ---- (c) the dry run at the production mesh, and dryrun_assoc
-    pmesh = make_production_mesh(device=DEVICE)
-    out["dryrun"] = {}
-    for strategy in ST.STRATEGIES:
-        cell = DR.plan_cell(TRAIN_ARCH, "train_4k", pmesh, strategy)
-        r = cell["roofline"]
-        out["dryrun"][strategy] = {"memory": cell["memory"], "n_micro": cell["n_micro"],
-                                   "collectives": cell["collectives"]["calls"],
-                                   "collective_bytes": cell["collectives"]["bytes"],
-                                   "t_compute_ms": r["t_compute_s"] * 1e3, "t_memory_ms": r["t_memory_s"] * 1e3,
-                                   "t_collective_ms": r["t_collective_s"] * 1e3, "bottleneck": r["bottleneck"],
-                                   "executor_only": cell["executor_only"]}
-        log(f"[shard] (c) dry run {TRAIN_ARCH} train_4k at {pmesh.shape} under {strategy}: "
-            f"{json.dumps(out['dryrun'][strategy])}")
-    zero_counts()
-    d, g = SHARD_ASSOC
-    assoc = DA.run(d, g, DEVICE, log=lambda s: log(f"[shard] (c) dryrun_assoc {s}"))
-    a_launches = read_counts()
-    par, sh = assoc[f"parallel_hier_{d}"], assoc[f"sharded_assoc_{d}"]
-    check(par["update_path_collective_free"], ("(c) the paper design's update holds no collective", par))
-    check(sh["routes_via_all_to_all"], ("(c) ShardedAssoc routes by all-to-all", sh))
-    check(a_launches["hier_cascade"] + a_launches["sort_dedup"] > 0, ("(c) dryrun_assoc's kernels", a_launches))
-    out["dryrun_assoc"] = {**assoc, "reduced": {"group": [100_000, g]}, "launches": a_launches}
-    out["launches"]["shard_assoc"] = a_launches
-    log(f"[shard] (c) dryrun_assoc at D={d}, group {g} (cut from 100,000): parallel {par['collectives']} "
-        f"in {par['update_s']:.2f} s, sharded {sh['collectives']} in {sh['update_s']:.2f} s, dropped "
-        f"{sh['dropped']}; launches {a_launches}")
-    free(torch)
-    leg_done("c_dryrun")
+        leg_done("c_dryrun")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[shard] phase_shard {out['wall_s']:.1f} s: {out['legs_s']}")
     return out
+
+
+# (e): head-split "tp" training for the families (a) and (b) bypass, at
+# published width, depth cut to fit with AdamW state (arch, the cuts tried
+# in order, the first whose estimate fits taken)
+SHARD_TP_LEGS = (
+    ("deepseek_v3", ({"n_layers": 1, "first_dense": 1}, {"n_layers": 1, "first_dense": 1, "mtp_depth": 0})),
+    ("mamba2_1_3b", ({"n_layers": 4},)),
+    ("phi3_5_moe", ({"n_layers": 1},)),
+)
+# the larger step's peak, in float32 weights: the unsharded step's params,
+# m, v, gradients and new state (the sharded step's, with one placed copy of
+# the state, is below it)
+SHARD_TP_STATE = 7
+
+
+def tp_train_legs(torch, out, sharded_leg, leg_done):
+    """``phase_shard``'s (e): a head-split "tp" step on the 2 x 2 mesh
+    against the unsharded step for deepseek-v3 (MLA heads split, one dense
+    layer and its MTP block where the bytes allow), mamba2-1.3b (state
+    heads and conv channels split, 4 of 48 layers) and phi3.5-moe (1 of 32
+    layers: the local MoE path over two data shards, ``moe.ShardStats``'
+    gradient-free first pass), each at published width, bfloat16 compute
+    over float32 master weights, ``TokenStream`` Zipf(1.3) tokens in two
+    microbatches, remat and AdamW.  The unsharded step runs first and is
+    freed (``sharded_leg``); ``scatter_add`` launches once a microbatch on
+    each model shard's vocabulary block."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch, cuts in SHARD_TP_LEGS:
+        full = get_config(arch)
+        for cut in cuts:
+            cfg = dataclasses.replace(full, **cut)
+            pb = tree_bytes(TF.init_params(None, cfg, device="meta"))
+            need = SHARD_TP_STATE * pb + 8e9
+            if need <= total:
+                break
+        check(need <= total, (arch, "no depth cut fits", need, total))
+        reduced = {k: [getattr(full, k), v] for k, v in cut.items()}
+        log(f"[shard] (e) {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab:,}; float32 "
+            f"weights {pb / 1e9:.2f} GB (needs about {need / 1e9:.1f} of {total / 1e9:.1f} GB: the unsharded "
+            f"step's state, gradients and new state); reduced: {reduced}")
+        host = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=TRAIN_SEED).batch_at(0)
+        batch = {k: torch.from_numpy(x).to(DEVICE) for k, x in host.items()}
+
+        def fresh(cfg=cfg):
+            return ST.init_train_state(torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED), cfg, DEVICE)
+
+        tag = f"(e) tp {arch}"
+        res, got, placed, step = sharded_leg(cfg, fresh, batch, "tp", tag, SHARD_LEAF_REL, SHARD_LOSS_REL)
+        check(res["head_split"], (tag, "head-split"))
+        res.update(reduced=reduced, weights_gb=pb / 1e9)
+        out["steps"][f"tp_{arch}"] = res
+        out["launches"][f"shard_tp_{arch}"] = res["launches"]
+        del got, placed, step, batch
+        free(torch)
+        leg_done(f"e_{arch}")
 
 
 def compression_leg(torch, np, ST, SD, DR, mesh, cfg, state, batch, opt_cfg, timed):
@@ -3718,16 +3865,26 @@ SERVE_MESH = (2, 2)  # (data, model) of cuda:0, "tp"
 # (cell, batch, cache capacity, first position): decode_32k with its batch
 # cut from 128 to 16, and long_500k (batch 1: the slot axis over "data")
 SERVE_DECODE = (("decode_32k", 16, 32768, 32640), ("long_500k", 1, 524288, 524160))
-SERVE_STEPS = 16
+SERVE_STEPS = 8  # cut from 16
 SERVE_PREFILL = (2, 4096)  # prefill_32k cut from 32 x 32,768
 SERVE_BF16_REL = 2.0 ** -5  # bfloat16 logits and cache slots, of max |value|
 SERVE_FP32_REL = 1e-4
 SERVE_FP32_CUT = {"n_layers": 4, "dtype": "float32"}  # the same legs at 4 of 24 layers in float32
 SERVE_FP32_STEPS = 4
 SERVE_SEED = 0
+# (d5)-(d7): the head-split serve paths (d1)-(d3) bypass, each at its
+# published width; the KV caches 4,096-slot rings from the seed
+SERVE_RING = (4096, 32640)  # slots, first decoded position
+SERVE_SPLIT_STEPS = 8
+SERVE_SEQ_STEPS = 2  # batch 1 on the sequence-parallel branch
+SERVE_MLA_ARCH = "deepseek_v3"  # 128 heads, kv_lora_rank 512, vocab 129,280
+SERVE_MLA_CUT = {"n_layers": 3, "first_dense": 3}  # its dense layers (no routed experts), as phase_lm's leg
+SERVE_SSM_ARCH = "mamba2_1_3b"  # 48 layers, 64 state heads, 4,352 conv channels
+SERVE_KV_ARCH = "qwen2_0_5b"  # 14 query heads, 2 KV heads of 64
+SERVE_KV_MESHES = (((2, 4), "hd"), ((2, 3), "q"))  # (data, model): head_dim in blocks of 16; query heads 5/5/4
 
 
-def phase_shard_serve(torch, np):
+def phase_shard_serve(torch, np, legs=("d", "split", "d4")):
     """Sharded serving on the card (``launch.steps.place_serve_state``,
     ``make_serve_step``/``make_prefill_step`` over a mesh: heads split
     over "model", ``serving.sharded_decode_step``/``sharded_prefill``).
@@ -3739,16 +3896,19 @@ def phase_shard_serve(torch, np):
 
     (d1) ``decode_32k``-shaped decode at batch 16 (cut from 128): a
          4,096-slot ring a layer filled from the seed (random bfloat16 K/V,
-         ``kpos`` the positions 28,544-32,639), 16 greedy steps from
-         position 32,640, the batch over "data" and the KV heads over
-         "model", against the unsharded ``make_serve_step`` on an equal
-         copy of the cache (both fed the unsharded step's greedy tokens);
+         ``kpos`` the positions 28,544-32,639), 8 greedy steps (cut from
+         16) from position 32,640, the batch over "data" and the KV heads
+         over "model", against the unsharded ``make_serve_step`` on an
+         equal copy of the cache (both fed the unsharded step's greedy
+         tokens);
     (d2) ``long_500k`` decode, batch 1: the slot axis over "data" (the
          sequence-parallel branch), positions 520,064-524,159 in the ring,
-         16 steps from 524,160, compared the same way;
+         8 steps from 524,160, compared the same way;
     (d3) ``make_prefill_step`` on 2 x 4,096 ``TokenStream`` tokens (cut
          from 32 x 32,768), the last position's logits against unsharded;
     then the three legs again in float32 at 4 of the 24 layers;
+    (d5)-(d7) head-split MLA (absorbed and naive), Mamba-2, FSDP rows
+         under "tp" and the "hd" and "q" cache splits (:func:`split_legs`);
     (d4) the dry run's serve cells: ``plan_cell`` for the ten archs x
          ``prefill_32k``, ``decode_32k``, ``long_500k`` at 16 x 16 with the
          sharded steps' collectives.
@@ -3757,10 +3917,9 @@ def phase_shard_serve(torch, np):
     |logit|; each greedy token equal wherever the unsharded step's top-two
     margin exceeds that tolerance; the written cache slots within it,
     ``kpos`` and ``pos`` exact; each step's collectives equal
-    ``dryrun.serve_collectives``; every logits block on the card."""
-    import dataclasses
-
-    from repro_torch.configs import ARCH_IDS, get_config
+    ``dryrun.serve_collectives``; every logits block on the card.
+    ``legs`` picks among "d" ((d1)-(d3)), "split" ((d5)-(d7)) and "d4"."""
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.data.tokens import TokenStream
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import shapes as SH
@@ -3789,6 +3948,7 @@ def phase_shard_serve(torch, np):
 
     mesh = make_local_mesh(data=SERVE_MESH[0], model=SERVE_MESH[1], device=DEVICE)
     gen = torch.Generator(device=DEVICE)
+    on = torch.device(DEVICE).type
 
     def ring_cache(c, batch, cap, pos0):
         """A decode cache as a ring after ``pos0`` tokens: K/V from the
@@ -3805,7 +3965,7 @@ def phase_shard_serve(torch, np):
                 leaf.normal_(0.0, 0.5, generator=gen)
         return cache
 
-    def decode_leg(c, params, cell, batch, cap, pos0, steps, tol, tag):
+    def decode_leg(c, params, cell, batch, cap, pos0, steps, tol, tag, mesh=mesh):
         gen.manual_seed(SERVE_SEED)
         want = ring_cache(c, batch, cap, pos0)
         src = TF.tree_map(lambda x: x.clone(), want)  # an equal copy; placed by views, written in place
@@ -3822,7 +3982,7 @@ def phase_shard_serve(torch, np):
                 (g, pc), sms = timed(sstep, pp, pc, tok)
                 if counted is None:
                     counted = dict(mesh.collectives), dict(mesh.collective_bytes)
-                check(all(b.is_cuda for b in g.shards), (tag, "every logits block on the card"))
+                check(all(b.device.type == on for b in g.shards), (tag, "every logits block on the card"))
                 gl = g.gather()
                 errs.append(rel(gl, w))
                 wv, gv = w[:, -1, : c.vocab].float(), gl[:, -1, : c.vocab].float()
@@ -3846,17 +4006,22 @@ def phase_shard_serve(torch, np):
             got = sh.gather()
             if names[-1] in ("kpos", "pos"):
                 check(torch.equal(got, w), (tag, names, "exact"))
+            elif names[-1] in ("ssm", "conv"):  # Mamba-2's state: all of it written each step
+                slot_err = max(slot_err, rel(got, w))
             else:
                 idx = torch.tensor([(pos0 + t) % w.shape[-3] for t in range(steps)], device=DEVICE)
                 slot_err = max(slot_err, rel(got.index_select(-3, idx), w.index_select(-3, idx)))
             del got
         check(slot_err <= tol, (tag, "written cache slots", slot_err))
+        lay = SV.SD.serve_layout(c, mesh, batch)
         res = {"cell": cell, "batch": batch, "cache_capacity": cap, "first_pos": pos0, "steps": steps,
-               "seq_shard": SV.SD.serve_layout(c, mesh, batch).seq_shard, "max_rel_err": max(errs),
+               "mesh": dict(mesh.shape), "seq_shard": lay.seq_shard, "attn": lay.attn, "ssm_tp": lay.ssm_tp,
+               "conv_tp": lay.conv_tp, "max_rel_err": max(errs),
                "slot_rel_err": slot_err, "greedy_tokens_compared": n_tok, "sharded_ms": s_ms, "unsharded_ms": u_ms,
                "sharded_ms_median": float(np.median(s_ms[1:])), "unsharded_ms_median": float(np.median(u_ms[1:])),
                "collectives": counted[0], "collective_bytes": counted[1], "placed_cache": placed}
-        log(f"[serve-shard] {tag} {cell} batch {batch}: logits within {max(errs):.2e} of max, slots within "
+        log(f"[serve-shard] {tag} {cell} batch {batch} on {dict(mesh.shape)} ({lay.attn}, seq_shard "
+            f"{lay.seq_shard}): logits within {max(errs):.2e} of max, {'state' if c.ssm else 'slots'} within "
             f"{slot_err:.2e}, kpos and pos exact, {n_tok} greedy tokens decided and equal; a step "
             f"{res['sharded_ms_median']:.1f} ms sharded against {res['unsharded_ms_median']:.1f} ms unsharded "
             f"(median of steps 2-{steps}); collectives {counted[0]} ({counted[1]} bytes on device 0); the placed "
@@ -3864,7 +4029,7 @@ def phase_shard_serve(torch, np):
         del want, src, pc, pp
         return res
 
-    def prefill_leg(c, params, tol, tag):
+    def prefill_leg(c, params, tol, tag, mesh=mesh):
         b, seq = SERVE_PREFILL
         host = TokenStream(c.vocab, b, seq, seed=SERVE_SEED).batch_at(0)
         batch = {"tokens": torch.from_numpy(host["tokens"]).to(DEVICE)}
@@ -3875,49 +4040,31 @@ def phase_shard_serve(torch, np):
             mesh.reset_collectives()
             g, sms = timed(step, pp, batch)
             counted = dict(mesh.collectives), dict(mesh.collective_bytes)
-        check(all(x.is_cuda for x in g.shards), (tag, "every logits block on the card"))
+        check(all(x.device.type == on for x in g.shards), (tag, "every logits block on the card"))
         err = rel(g.gather(), w)
         check(err <= tol, (tag, "sharded prefill logits", err))
         check(counted == DR.serve_collectives(c, mesh, "tp", SH.ShapeSpec("prefill_32k", "prefill", seq, b)),
               (tag, "prefill collectives equal the formula", counted))
-        log(f"[serve-shard] {tag} prefill {b} x {seq}: last-position logits within {err:.2e} of max; "
+        log(f"[serve-shard] {tag} prefill {b} x {seq} on {dict(mesh.shape)}: last-position logits within "
+            f"{err:.2e} of max; "
             f"{sms:.1f} ms sharded against {ums:.1f} ms unsharded; collectives {counted[0]} "
             f"({counted[1]} bytes on device 0)")
-        return {"batch": b, "seq": seq, "rel_err": err, "sharded_ms": sms, "unsharded_ms": ums,
+        return {"mesh": dict(mesh.shape), "batch": b, "seq": seq, "rel_err": err, "sharded_ms": sms,
+                "unsharded_ms": ums,
                 "collectives": counted[0], "collective_bytes": counted[1]}
 
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(SERVE_ARCH)
-    fcfg = dataclasses.replace(cfg, **SERVE_FP32_CUT)
-    for c, tag in ((cfg, "bf16"), (fcfg, "float32 4 layers")):
-        pb = tree_bytes(TF.init_params(None, c, device="meta"))
-        cb = {cell: tree_bytes(SV.init_cache(c, b, cap, TF.compute_dtype(c), device="meta"))
-              for cell, b, cap, _ in SERVE_DECODE}
-        log(f"[serve-shard] {c.name} {tag}: {c.n_layers} layers, d_model {c.d_model}, {c.n_heads}/{c.n_kv_heads} "
-            f"heads, window {c.sliding_window}; float32 weights {pb / 1e9:.2f} GB; caches "
-            f"{ {k: round(v / 1e9, 3) for k, v in cb.items()} } GB (two copies a leg: sharded and unsharded); "
-            f"mesh {mesh.shape} of {mesh.device_list[0]}; reduced: decode_32k batch 128 -> 16, prefill_32k "
-            f"32 x 32768 -> {SERVE_PREFILL[0]} x {SERVE_PREFILL[1]}")
-    params = TF.init_params(torch.Generator(device=DEVICE).manual_seed(SERVE_SEED), cfg, DEVICE)
-    for cell, b, cap, pos0 in SERVE_DECODE:
-        out["legs"][cell] = decode_leg(cfg, params, cell, b, cap, pos0, SERVE_STEPS, SERVE_BF16_REL, "(d)")
-        free(torch)
-        leg_done(cell)
-    out["legs"]["prefill"] = prefill_leg(cfg, params, SERVE_BF16_REL, "(d3)")
-    del params
-    free(torch)
-    leg_done("prefill")
-    fparams = TF.init_params(torch.Generator(device=DEVICE).manual_seed(SERVE_SEED), fcfg, DEVICE)
-    for cell, b, cap, pos0 in SERVE_DECODE:
-        out["legs"][f"float32_{cell}"] = decode_leg(fcfg, fparams, cell, b, cap, pos0, SERVE_FP32_STEPS,
-                                                    SERVE_FP32_REL, "(d) float32")
-    out["legs"]["float32_prefill"] = prefill_leg(fcfg, fparams, SERVE_FP32_REL, "(d3) float32")
-    del fparams
-    free(torch)
-    leg_done("float32")
+    if "d" in legs:
+        head_legs(torch, out, decode_leg, prefill_leg, leg_done, mesh)
+    if "split" in legs:
+        split_legs(torch, out, decode_leg, prefill_leg, leg_done, mesh)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     check(out["peak_gb"] < 70, ("(d) peak device memory under 70 GB", out["peak_gb"]))
+    if "d4" not in legs:
+        out["launches"] = {"shard_serve": read_counts()}
+        out["wall_s"] = time.perf_counter() - t_phase
+        return out
 
     # (d4) the dry run's serve cells at the production mesh
     pmesh = make_production_mesh(device=DEVICE)
@@ -3947,6 +4094,138 @@ def phase_shard_serve(torch, np):
     return out
 
 
+def head_legs(torch, out, decode_leg, prefill_leg, leg_done, mesh):
+    """``phase_shard_serve``'s (d1)-(d3): h2o-danube3-4b, bfloat16 at
+    full depth, then float32 at 4 layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import serving as SV
+    from repro_torch.models import transformer as TF
+
+    cfg = get_config(SERVE_ARCH)
+    fcfg = dataclasses.replace(cfg, **SERVE_FP32_CUT)
+    for c, tag in ((cfg, "bf16"), (fcfg, "float32 4 layers")):
+        pb = tree_bytes(TF.init_params(None, c, device="meta"))
+        cb = {cell: tree_bytes(SV.init_cache(c, b, cap, TF.compute_dtype(c), device="meta"))
+              for cell, b, cap, _ in SERVE_DECODE}
+        log(f"[serve-shard] {c.name} {tag}: {c.n_layers} layers, d_model {c.d_model}, {c.n_heads}/{c.n_kv_heads} "
+            f"heads, window {c.sliding_window}; float32 weights {pb / 1e9:.2f} GB; caches "
+            f"{ {k: round(v / 1e9, 3) for k, v in cb.items()} } GB (two copies a leg: sharded and unsharded); "
+            f"mesh {mesh.shape} of {mesh.device_list[0]}; reduced: decode_32k batch 128 -> 16, prefill_32k "
+            f"32 x 32768 -> {SERVE_PREFILL[0]} x {SERVE_PREFILL[1]}")
+    params = TF.init_params(torch.Generator(device=DEVICE).manual_seed(SERVE_SEED), cfg, DEVICE)
+    for cell, b, cap, pos0 in SERVE_DECODE:
+        out["legs"][cell] = decode_leg(cfg, params, cell, b, cap, pos0, SERVE_STEPS, SERVE_BF16_REL, "(d)")
+        free(torch)
+        leg_done(cell)
+    out["legs"]["prefill"] = prefill_leg(cfg, params, SERVE_BF16_REL, "(d3)")
+    del params
+    free(torch)
+    leg_done("prefill")
+    fparams = TF.init_params(torch.Generator(device=DEVICE).manual_seed(SERVE_SEED), fcfg, DEVICE)
+    for cell, b, cap, pos0 in SERVE_DECODE:
+        out["legs"][f"float32_{cell}"] = decode_leg(fcfg, fparams, cell, b, cap, pos0, SERVE_FP32_STEPS,
+                                                    SERVE_FP32_REL, "(d) float32")
+    out["legs"]["float32_prefill"] = prefill_leg(fcfg, fparams, SERVE_FP32_REL, "(d3) float32")
+    del fparams
+    free(torch)
+    leg_done("float32")
+
+
+
+def split_legs(torch, out, decode_leg, prefill_leg, leg_done, mesh):
+    """``phase_shard_serve``'s (d5)-(d7), the head-split paths (d1)-(d3)
+    bypass, each at its published width (bfloat16 compute over float32
+    weights; each leg's bytes from ``device="meta"`` first; its state freed
+    after it):
+
+    (d5) deepseek-v3 at its 3 dense layers, "tp" on the 2 x 2 mesh: 128
+         MLA heads, 64 a model shard, the latent cache replicated over
+         "model"; decode at batch 16 from a 4,096-slot latent ring, absorbed
+         and naive (``serving.MLA_ABSORBED``), each against the unsharded
+         step under the same flag; both forms again at batch 1 (the slot
+         axis over "data": the sequence-parallel softmax); a 2 x 4,096
+         prefill; a decode with FSDP rows under "tp"
+         (``sharding.DP_THRESHOLD_PARAMS`` 0: the depth cut takes the
+         config under the threshold);
+    (d6) mamba2-1.3b at full depth, "tp" on 2 x 2: 64 state heads and
+         4,352 conv channels split; decode at batch 16 from seed-made
+         SSM/conv state, ``long_500k`` at batch 1, a 2 x 4,096 prefill;
+    (d7) qwen2-0.5b at full depth: "hd" on 2 x 4 (2 KV heads, ``head_dim``
+         64 in blocks of 16, the partial scores summed over "model") and "q"
+         on 2 x 3 (14 query heads in ceil blocks over a replicated cache),
+         each a decode at batch 16 from a 4,096-slot ring and a prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import serving as SV
+    from repro_torch.models import sharding as SD
+    from repro_torch.models import transformer as TF
+
+    cap, pos0 = SERVE_RING
+    tol = SERVE_BF16_REL
+
+    def made(c, what, cut, meshes):
+        reduced = {**cut, "decode_32k batch": [128, 16], "prefill_32k": ["32 x 32768", "%d x %d" % SERVE_PREFILL]}
+        pb = tree_bytes(TF.init_params(None, c, device="meta"))
+        cb = tree_bytes(SV.init_cache(c, 16, cap, TF.compute_dtype(c), device="meta"))
+        log(f"[serve-shard] {what} {c.name}: {c.n_layers} layers, d_model {c.d_model}, {c.n_heads}/"
+            f"{c.n_kv_heads} heads, vocab {c.vocab:,}; float32 weights {pb / 1e9:.2f} GB; a batch-16 cache of "
+            f"{cap} slots {cb / 1e9:.3f} GB (two copies a leg); meshes {meshes}; reduced: {reduced}")
+        return TF.init_params(torch.Generator(device=DEVICE).manual_seed(SERVE_SEED), c, DEVICE)
+
+    legs = out["legs"]
+    # ---- (d5) head-split MLA, absorbed and naive
+    full = get_config(SERVE_MLA_ARCH)
+    c = dataclasses.replace(full, **SERVE_MLA_CUT)
+    params = made(c, "(d5)", {k: [getattr(full, k), v] for k, v in SERVE_MLA_CUT.items()}, [dict(mesh.shape)])
+    for absorbed in (True, False):
+        form = "absorbed" if absorbed else "naive"
+        with setting(SV.MLA_ABSORBED, "enabled", absorbed):
+            legs[f"mla_{form}"] = decode_leg(c, params, "decode_4k", 16, cap, pos0, SERVE_SPLIT_STEPS, tol,
+                                             f"(d5) MLA {form}")
+            legs[f"mla_{form}_seq"] = decode_leg(c, params, "decode_4k_batch_1", 1, cap, pos0, SERVE_SEQ_STEPS,
+                                                 tol, f"(d5) MLA {form}")
+            check(legs[f"mla_{form}_seq"]["seq_shard"], "(d5) batch 1 takes the sequence-parallel branch")
+    legs["mla_prefill"] = prefill_leg(c, params, tol, "(d5) MLA")
+    with setting(SD, "DP_THRESHOLD_PARAMS", 0):
+        check(SD.use_fsdp(c), "(d5) FSDP rows under tp")
+        legs["mla_fsdp_rows"] = decode_leg(c, params, "decode_4k", 16, cap, pos0, SERVE_SEQ_STEPS, tol,
+                                           "(d5) MLA, FSDP rows under tp")
+    del params
+    free(torch)
+    leg_done("d5_mla")
+
+    # ---- (d6) head-split Mamba-2
+    c = get_config(SERVE_SSM_ARCH)
+    lay = SD.serve_layout(c, mesh, 16)
+    check(lay.ssm_tp and lay.conv_tp, ("(d6) state heads and conv channels split", lay))
+    params = made(c, "(d6)", {}, [dict(mesh.shape)])
+    legs["ssm_decode"] = decode_leg(c, params, "decode_4k", 16, cap, pos0, SERVE_SPLIT_STEPS, tol, "(d6) Mamba-2")
+    _, b, lcap, lpos = SERVE_DECODE[1]
+    legs["ssm_long_500k"] = decode_leg(c, params, "long_500k", b, lcap, lpos, SERVE_SPLIT_STEPS, tol,
+                                       "(d6) Mamba-2")
+    legs["ssm_prefill"] = prefill_leg(c, params, tol, "(d6) Mamba-2")
+    del params
+    free(torch)
+    leg_done("d6_ssm")
+
+    # ---- (d7) the "hd" and "q" cache splits
+    c = get_config(SERVE_KV_ARCH)
+    meshes = [(make_local_mesh(data=d, model=m, device=DEVICE), attn) for (d, m), attn in SERVE_KV_MESHES]
+    params = made(c, "(d7)", {}, [dict(m.shape) for m, _ in meshes])
+    for m, attn in meshes:
+        check(SD.serve_layout(c, m, 16).attn == attn, ("(d7) the cache split", attn))
+        legs[f"{attn}_decode"] = decode_leg(c, params, "decode_4k", 16, cap, pos0, SERVE_SPLIT_STEPS, tol,
+                                            f"(d7) {attn}", m)
+        legs[f"{attn}_prefill"] = prefill_leg(c, params, tol, f"(d7) {attn}", m)
+    del params
+    free(torch)
+    leg_done("d7_hd_q")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3973,6 +4252,7 @@ def main() -> int:
     log(f"[device] {name}, torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
 
     walls = {}
+    t_start = time.perf_counter()
 
     def timed_phase(name, fn, *args):
         t0 = time.perf_counter()
@@ -3981,9 +4261,9 @@ def main() -> int:
         return res
 
     timed_phase("build", phase_build)
-    parity_err = phase_parity(torch, np)
-    ops_err = phase_parity_ops(torch, np)
-    scatter_err = phase_parity_scatter(torch, np)
+    parity_err = timed_phase("parity", phase_parity, torch, np)
+    ops_err = timed_phase("parity_ops", phase_parity_ops, torch, np)
+    scatter_err = timed_phase("parity_scatter", phase_parity_scatter, torch, np)
     torch.cuda.reset_peak_memory_stats()
     lm = timed_phase("lm", phase_lm, torch, np)
     free(torch)
@@ -3995,12 +4275,12 @@ def main() -> int:
     free(torch)
     examples = timed_phase("examples", phase_examples, torch, np)
     free(torch)
-    data = phase_data(torch, np)
+    data = timed_phase("data", phase_data, torch, np)
     sess8, main_run = timed_phase("main", phase_main, torch, np, data)
     mesh = timed_phase("mesh", phase_mesh, torch, np, data, sess8)
-    bf16_err = phase_bf16_ingest(torch, np, data)
-    types_err, types_launches = phase_value_types(torch, np, data)
-    read = phase_read_side(torch, np, sess8, data)
+    bf16_err = timed_phase("bf16_ingest", phase_bf16_ingest, torch, np, data)
+    types_err, types_launches = timed_phase("value_types", phase_value_types, torch, np, data)
+    read = timed_phase("read_side", phase_read_side, torch, np, sess8, data)
     served = timed_phase("serve", phase_serve, torch, np, data, sess8)
     # the fleet's workers hold their own state: free this process's first
     fleet_want = sess8.snapshot()
@@ -4013,10 +4293,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     bench = timed_phase("bench", phase_bench, torch, np)
-    single_sess, single = phase_single(torch, np, data)
-    times = phase_kernel_times(torch, np, data, main_run, single_sess)
+    single_sess, single = timed_phase("single", phase_single, torch, np, data)
+    times = timed_phase("kernel_times", phase_kernel_times, torch, np, data, main_run, single_sess)
     del single_sess
-    algebra = phase_algebra(torch, np)
+    algebra = timed_phase("algebra", phase_algebra, torch, np)
     log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     # free the streaming phases' state before the embedding path
     del data
@@ -4028,7 +4308,8 @@ def main() -> int:
     log(f"[embed] device memory held before the phase {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     embed = timed_phase("embed", phase_embed_grad, torch, np)
     fl = embed["flushed"]
-    embed_times = scatter_times(torch, np, fl.ids, fl.rows, int(fl.nnz), embed["rows_n"], "times")
+    embed_times = timed_phase("scatter_times", scatter_times, torch, np, fl.ids, fl.rows, int(fl.nnz),
+                              embed["rows_n"], "times")
     log(f"[embed] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     paths = {"cuda": main_run["launches"], "single": single["launches"], "read": read["launches"],
@@ -4164,10 +4445,9 @@ def main() -> int:
     log("[fleet-metrics] " + json.dumps({
         "card": card,
         "host_cores": fleet["cores"],
-        "serve": FLEET_SERVE,
+        "serve": "the default ServeConfig",
         "sweep": {f"N={n}": {k: v for k, v in row.items() if k != "merge_kernel"}
                   for n, row in fleet["sweep"].items()},
-        "default_serve_config_N=4": fleet["default"],
         "kill_leg_N=2": fleet["kill"],
         "merge_kernel": fleet["sweep"][max(FLEET_WORKERS)]["merge_kernel"],
         "controller_chunk_ms": fleet["host_costs"],
@@ -4177,6 +4457,8 @@ def main() -> int:
     log("[bench-metrics] " + json.dumps({
         "card": card,
         "wall_s": bench["wall_s"],
+        "sections_s": bench["sections_s"],
+        "reduced": bench["reduced"],
         "sections": bench["sections"],
         "launches": bench["launches"],
     }))
@@ -4187,6 +4469,7 @@ def main() -> int:
                                                                 if k != "launches"}}))
     log("[examples-metrics] " + json.dumps({"card": card, **{k: v for k, v in examples.items()
                                                              if k != "launches"}}))
+    walls["total"] = round(time.perf_counter() - t_start, 1)
     log(f"[timing] phases, s: {walls}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -53,6 +53,7 @@ from repro_torch.core.mesh import COLLECTIVES, Mesh, axis_tuple, block_shape
 from repro_torch.launch import shapes as SH
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import serving as SV
 from repro_torch.models import sharding as SD
 from repro_torch.models import tp_train as TT
 from repro_torch.models import transformer as TF
@@ -432,7 +433,8 @@ def serve_collectives(cfg: ModelConfig, mesh: Mesh, strategy: str, shape) -> Tup
                 add("all-reduce", (b0, S, d), dtype)
         elif decode and cfg.mla is not None:
             h0, h1 = lay.mla_heads(0)
-            softmax_over_slots((b0, h1 - h0, 1), (b0, 1, h1 - h0, cfg.mla.kv_lora_rank))
+            width = cfg.mla.kv_lora_rank if SV.MLA_ABSORBED["enabled"] else cfg.mla.v_head_dim
+            softmax_over_slots((b0, h1 - h0, 1), (b0, 1, h1 - h0, width))  # latent or value context
             out_psum(1)
         elif decode:
             window = cfg.sliding_window if (not g.is_global and cfg.sliding_window) else None

@@ -149,15 +149,27 @@ def strategy_context(mesh: Mesh, strategy: str):
 
 def place_train_state(state, cfg: ModelConfig, mesh: Mesh, strategy: str = "tp"):
     """``state`` (``{"params", "opt"[, "residual"]}``) placed over ``mesh`` by
-    ``sharding.param_specs``/``opt_specs`` of ``strategy``: every device
-    gets buffers of its own, uneven splits padded as GSPMD pads them."""
+    ``sharding.param_specs``/``opt_specs`` of ``strategy``: buffers of its
+    own for each block on each distinct device (replicas on a repeated
+    device share one, as the step's new state does), uneven splits padded
+    as GSPMD pads them."""
     specs = {
         "params": SD.param_specs(cfg, mesh, state["params"], strategy),
         "opt": SD.opt_specs(cfg, mesh, state["opt"], strategy),
     }
     if "residual" in state:  # compression's error feedback lies as the params do
         specs["residual"] = SD.param_specs(cfg, mesh, state["residual"], strategy)
-    return device_put(state, SD.shardings_of(mesh, specs), copy=True, pad=True)
+    return TF.tree_map(_owned_blocks, device_put(state, SD.shardings_of(mesh, specs), pad=True))
+
+
+def _owned_blocks(sh: Sharded) -> Sharded:
+    """A placed leaf with one buffer of its own a (device, block)."""
+    chunks, _ = sh.sharding.mesh.chunk_of(sh.sharding.spec)
+    made: Dict[Tuple[str, int], torch.Tensor] = {}
+    for b, c in zip(sh.shards, chunks):
+        if (str(b.device), c) not in made:
+            made[(str(b.device), c)] = b.clone()
+    return Sharded(sh.sharding, tuple(made[(str(b.device), c)] for b, c in zip(sh.shards, chunks)), sh.shape)
 
 
 def gather_train_state(state, device=None):
@@ -392,7 +404,12 @@ def sharded_train_step(cfg: ModelConfig, opt_cfg, n_micro: int, ep_axis, dp_spec
         lm = mesh.psum(lm, plan.batch_axes)
     loss, nll = lm[0].mean(0).unbind()
 
-    grads = [[g / n_micro for g in xs] for xs in grads]
+    for xs in grads:  # a leaf at a time; a block that replicas share stays shared
+        scaled: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        for i, g in enumerate(xs):
+            if id(g) not in scaled:
+                scaled[id(g)] = (g, g / n_micro)
+            xs[i] = scaled[id(g)][1]
     residual = None
     if comp_cfg.enabled:
         grads, residual = compress_blocks(mesh, named, grads, _named_leaves(state["residual"]), comp_cfg)
@@ -547,8 +564,13 @@ def _head_split_micro(cfg, plan: _Plan, named, params_sh, tokens, labels, fe, n_
     def add(c, g):
         for dev_i, gs in g.items():
             gs = [None if x is None else x.to(torch.float32) for x in gs]
-            accs[dev_i] = gs if accs[dev_i] is None else [
-                None if a is None else a + x for a, x in zip(accs[dev_i], gs)]
+            if accs[dev_i] is None:
+                accs[dev_i] = gs
+                continue
+            acc = accs[dev_i]
+            for li, x in enumerate(gs):  # a leaf at a time: each old sum goes as its new one comes
+                if acc[li] is not None:
+                    acc[li] = acc[li] + x
 
     parts = _microbatches(cfg, plan, tokens, labels, fe, n_micro, mb, run, add)
     return (accs, lplans), parts
@@ -579,6 +601,8 @@ def _reduce_head_split(plan: _Plan, named, accs_plans):
         xs = []
         for i in range(mesh.size):
             g = None if accs[i] is None else accs[i][li]
+            if accs[i] is not None:
+                accs[i][li] = None  # read once: the leaf's accumulators go with its reduction
             if g is None:  # a data shard of padding alone, or a leaf the step does not read
                 shape = list(sh.shards[i].shape)
                 for d, _ in lp.gathers:
@@ -700,7 +724,8 @@ def _regroup(plan: _Plan, named, flat):
 
 def _adamw_blocks(plan: _Plan, params_sh, named, grads, opt_sh, sq, opt_cfg):
     """AdamW on each device's blocks (a block held twice on one device is
-    stepped once and shared), clipped by the global norm."""
+    stepped once and shared), clipped by the global norm; ``grads`` is
+    emptied leaf by leaf as it goes."""
     mesh = plan.mesh
     m_named, v_named = _named_leaves(opt_sh["m"]), _named_leaves(opt_sh["v"])
     step_sh = opt_sh["step"]
@@ -714,7 +739,8 @@ def _adamw_blocks(plan: _Plan, params_sh, named, grads, opt_sh, sq, opt_cfg):
             b1c = 1 - opt_cfg.b1 ** step.to(torch.float32)
             b2c = 1 - opt_cfg.b2 ** step.to(torch.float32)
             consts[dev] = (scale, adamw.lr_schedule(opt_cfg, step), b1c, b2c, step)
-    for (names, sh), xs, (_, msh), (_, vsh) in zip(named, grads, m_named, v_named):
+    for li, ((names, sh), (_, msh), (_, vsh)) in enumerate(zip(named, m_named, v_named)):
+        xs, grads[li] = grads[li], None  # a leaf's gradients go once its blocks are stepped
         chunks, _ = mesh.chunk_of(sh.sharding.spec)
         done = {}
         ps, ms, vs = [], [], []

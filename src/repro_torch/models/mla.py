@@ -102,6 +102,45 @@ def mla_latents(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     return c_kv, k_rope
 
 
+def _up_project(p: Params, cfg: ModelConfig, c_kv: torch.Tensor, dtype):
+    """The latents [B, Sk, r] up-projected through ``wukv`` (its columns
+    for ``cfg.n_heads`` heads): ``(k_nope, v)`` [B, Sk, H, nope] and
+    [B, Sk, H, v]."""
+    m = cfg.mla
+    kv = torch.einsum("btr,rh->bth", c_kv, p["wukv"].to(dtype))
+    kv = kv.reshape(c_kv.shape[0], c_kv.shape[1], cfg.n_heads, m.qk_nope_dim + m.v_head_dim)
+    return kv[..., : m.qk_nope_dim], kv[..., m.qk_nope_dim :]
+
+
+def naive_scores(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                 latents: Tuple[torch.Tensor, torch.Tensor]):
+    """The naive form's scaled scores [B, H, Sq, Sk] (the latents
+    up-projected to per-head K) and its values V [B, Sk, H, v] for
+    :func:`naive_out`."""
+    m = cfg.mla
+    c_kv, k_rope = latents
+    q_nope, q_rope = _queries(p, cfg, x, positions)
+    k_nope, v = _up_project(p, cfg, c_kv, x.dtype)
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    scores = (
+        torch.einsum("bsnh,btnh->bnst", q_nope, k_nope)
+        + torch.einsum("bsnh,bth->bnst", q_rope, k_rope)  # rope key shared per head
+    ) * scale
+    return scores, v
+
+
+def naive_context(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Probabilities [B, H, Sq, Sk] over the values [B, Sk, H, v]: the
+    context [B, Sq, H, v]."""
+    return torch.einsum("bnst,btnh->bsnh", probs, v)
+
+
+def naive_out(p: Params, ctx: torch.Tensor) -> torch.Tensor:
+    """The context [B, Sq, H, v] through ``wo``."""
+    B, Sq = ctx.shape[:2]
+    return torch.einsum("bsh,hd->bsd", ctx.reshape(B, Sq, -1), p["wo"].to(ctx.dtype))
+
+
 def apply_mla(
     p: Params,
     cfg: ModelConfig,
@@ -116,29 +155,19 @@ def apply_mla(
     h = cfg.n_heads
     if latents is None:
         latents = mla_latents(p, cfg, x, positions)
-    c_kv, k_rope = latents  # [B, Sk, r], [B, Sk, dr]
-    q_nope, q_rope = _queries(p, cfg, x, positions)
-
-    kv = torch.einsum("btr,rh->bth", c_kv, p["wukv"].to(x.dtype))
-    kv = kv.reshape(B, -1, h, m.qk_nope_dim + m.v_head_dim)
-    k_nope, v = kv[..., : m.qk_nope_dim], kv[..., m.qk_nope_dim :]
-
-    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
-    if flash is not None:
-        # fold the shared rope key into per-head keys: scores = qf . kf
-        Sk = k_nope.shape[1]
-        qf = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]  # g=1
-        kf = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, Sk, h, m.qk_rope_dim)], dim=-1)
-        ctx = flash_attention(qf, kf, v, positions, positions, scale=scale, **flash)
-        ctx = ctx.reshape(B, Sq, h * m.v_head_dim)
-    else:
-        scores = (
-            torch.einsum("bsnh,btnh->bnst", q_nope, k_nope)
-            + torch.einsum("bsnh,bth->bnst", q_rope, k_rope)  # rope key shared per head
-        ) * scale
+    if flash is None:
+        scores, v = naive_scores(p, cfg, x, positions, latents)
         if mask is not None:
             scores = torch.where(mask[:, None, :, :], scores, BIG_NEG)
         probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-        ctx = torch.einsum("bnst,btnh->bsnh", probs, v).reshape(B, Sq, h * m.v_head_dim)
-    out = torch.einsum("bsh,hd->bsd", ctx, p["wo"].to(x.dtype))
-    return out, latents
+        return naive_out(p, naive_context(probs, v)), latents
+    c_kv, k_rope = latents  # [B, Sk, r], [B, Sk, dr]
+    q_nope, q_rope = _queries(p, cfg, x, positions)
+    k_nope, v = _up_project(p, cfg, c_kv, x.dtype)
+    # fold the shared rope key into per-head keys: scores = qf . kf
+    Sk = k_nope.shape[1]
+    qf = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]  # g=1
+    kf = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, Sk, h, m.qk_rope_dim)], dim=-1)
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    ctx = flash_attention(qf, kf, v, positions, positions, scale=scale, **flash)
+    return naive_out(p, ctx.reshape(B, Sq, h, m.v_head_dim)), latents

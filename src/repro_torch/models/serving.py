@@ -593,10 +593,15 @@ def _blocks_enc(run: _Run, enc_sh):
 
 
 def _sh_decode_mla(run: _Run, ps, hs, pos, cache_sh, r):
-    """MLA decode, absorbed (``_decode_mla`` with ``MLA_ABSORBED``): the
-    latents computed alike on every model shard and written into its
-    (replicated) latent cache block; each shard its heads."""
+    """MLA decode (``_decode_mla``), absorbed or naive as ``MLA_ABSORBED``
+    picks: the latents computed alike on every model shard and written
+    into its (replicated) latent cache block; each shard its heads.
+    Absorbed, W_uk folds into the shard's queries and the softmax weighs
+    the latents; naive, the latents are up-projected through the shard's
+    columns of ``wukv`` to its heads' K and V.  Either way the shard's
+    rows of ``wo``, then one ``psum`` over "model"."""
     cfg = run.cfg
+    absorbed = MLA_ABSORBED["enabled"]
     ckvs, krs, kps = (_blocks(cache_sh[n], r, run) for n in ("ckv", "krope", "kpos"))
     total = _full_len(cache_sh["kpos"], -1)
     lats = run.same(lambda w, x, p: MLA.mla_latents(w, cfg, x, _positions(p, x.shape[0])),
@@ -615,10 +620,17 @@ def _sh_decode_mla(run: _Run, ps, hs, pos, cache_sh, r):
             ok &= valid
         h0, h1 = run.lay.mla_heads(run.j[i])
         lcfg = dataclasses.replace(cfg, n_heads=h1 - h0, n_kv_heads=max(h1 - h0, 1), head_dim=cfg.hd)
-        s, wuv = MLA.absorbed_scores(ps[i]["mla"], lcfg, x, positions, (ckv, kr))
+        if absorbed:
+            s, wuv = MLA.absorbed_scores(ps[i]["mla"], lcfg, x, positions, (ckv, kr))
+            vals.append(ckv)
+            wuvs.append((lcfg, wuv))
+        else:
+            s, v = MLA.naive_scores(ps[i]["mla"], lcfg, x, positions, (ckv, kr))
+            vals.append(v)
         scores.append(torch.where(ok[:, None, None, :], s, L.BIG_NEG))
-        vals.append(ckv)
-        wuvs.append((lcfg, wuv))
+    if not absorbed:
+        ctx = _softmax_ctx(run, scores, vals, MLA.naive_context, run.dtype)
+        return run.psum_model([MLA.naive_out(ps[i]["mla"], c) for i, c in enumerate(ctx)])
     ctx = _softmax_ctx(run, scores, vals, lambda pr, c: torch.einsum("bhst,btr->bshr", pr, c), run.dtype)
     return run.psum_model([MLA.absorbed_out(ps[i]["mla"], lcfg, ctx[i], wuv) for i, (lcfg, wuv) in enumerate(wuvs)])
 

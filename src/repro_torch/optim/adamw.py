@@ -47,19 +47,20 @@ def tree_map(fn: Callable, tree):
 def tree_unflatten(tree, leaves):
     """``tree``'s structure with ``leaves`` (in :func:`tree_leaves` order)
     in place of its own."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            got = {k: build(t[k]) for k in sorted(t)}
-            return {k: got[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
 
-    return build(tree)
+def _build(t, it):
+    # a module-level function: a recursive closure would be a reference
+    # cycle holding ``leaves`` until the cyclic collector ran
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        got = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: got[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
 
 
 def init(params) -> Dict[str, Any]:
@@ -97,19 +98,35 @@ def clip_by_global_norm(grads, max_norm: float):
 
 def leaf_update(p, g, m, v, lr, b1c, b2c, cfg: AdamWConfig):
     """One leaf's AdamW step (``g`` clipped, float32): the new parameter
-    and moments.  A block of a sharded leaf takes the same step."""
-    m2 = cfg.b1 * m + (1 - cfg.b1) * g
-    v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
-    mhat = m2 / b1c
-    vhat = v2 / b2c
+    and moments.  A block of a sharded leaf takes the same step.
+
+        m2 = b1 m + (1 - b1) g;  v2 = b2 v + (1 - b2) g g
+        p2 = p - lr (m2 / b1c / (sqrt(v2 / b2c) + eps) + wd p)
+
+    each operation as written, its temporaries updated in place (a few
+    leaves of memory at once, not a dozen)."""
+    m2 = cfg.b1 * m
+    m2 += (1 - cfg.b1) * g
+    v2 = cfg.b2 * v
+    v2 += (1 - cfg.b2) * g * g
     p32 = p.to(torch.float32)
-    delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p32
-    return (p32 - lr * delta).to(p.dtype), m2, v2
+    den = v2 / b2c
+    den.sqrt_()
+    den += cfg.eps
+    delta = m2 / b1c
+    delta /= den
+    del den
+    delta += cfg.weight_decay * p32
+    delta *= lr
+    return (p32 - delta).to(p.dtype), m2, v2
 
 
 def update(grads, opt_state, params, cfg: AdamWConfig) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """One AdamW step.  Returns ``(new_params, new_opt_state, metrics)``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    """One AdamW step.  Returns ``(new_params, new_opt_state, metrics)``;
+    each leaf's gradient is clipped (``clip_by_global_norm``'s scale) as
+    it is stepped, so no clipped copy of the whole tree is held."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = opt_state["step"] + 1
     lr = lr_schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.to(torch.float32)
@@ -118,7 +135,7 @@ def update(grads, opt_state, params, cfg: AdamWConfig) -> Tuple[Any, Dict[str, A
     # flatten/unflatten, as the reference does
     leaves_p = tree_leaves(params)
     res = [
-        leaf_update(p, g, m, v, lr, b1c, b2c, cfg)
+        leaf_update(p, g.to(torch.float32) * scale, m, v, lr, b1c, b2c, cfg)
         for p, g, m, v in zip(
             leaves_p, tree_leaves(grads), tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"])
         )
